@@ -1,0 +1,132 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every source ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, ``build/kernels/<name>-<hash>.so`` at the root of the checkout
+(``build/`` is git-ignored), compiled for Hopper (``sm_90a``) on first use.
+The hash covers the source and the flags, so an edited source rebuilds and an
+unchanged one loads at once. ``build_all`` starts one ``nvcc`` per source, all
+together, and waits for them; ``library`` builds a single missing one on
+demand. Nothing here runs when the package is imported.
+
+A wrapper passes tensor pointers and PyTorch's current stream as
+``c_void_p`` and raises when the C function returns a CUDA error code (the C
+side returns ``cudaGetLastError()`` right after the launch, so a refused
+launch never passes silently).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("gbrt_predict", "linear_scan", "state_replay")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on ``PATH``,
+    else the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((str(Path(home) / "bin" / "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit "
+                       "or put nvcc on PATH")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _command(name: str, out: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names=SOURCES) -> dict[str, dict]:
+    """Compile every listed source that has no current library, one ``nvcc``
+    process per source, all started together. Returns per source the build
+    seconds (0 when it was already built) and the compiler's output (ptxas
+    register and shared-memory report). Raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    report: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            report[name] = {"seconds": 0.0, "log": "", "path": str(out)}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                        "path": str(out)}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of library ``name`` with its ``argtypes`` declared and an
+    ``int`` (CUDA error code) result."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer, or NULL for ``None``."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
+
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+F64 = ctypes.c_double

@@ -7,3 +7,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card (runs the port's CUDA "
+        "kernels); skipped where none is available")

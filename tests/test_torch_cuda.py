@@ -1,0 +1,182 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Marked ``cuda``: the fixture skips every test here when no CUDA card is
+available (the CUDA kernels have no CPU mode). Imports torch, numpy and
+``repro_torch`` only, so it runs on a machine without jax:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Float64 results must be bit-equal to the plain versions (the same rounded
+operations in the same order); float32 GBRT within 1e-4 and float32 linear
+scan within 5e-5 (the reference's own kernel tolerances). The replay-input
+helpers are shared with ``tests/test_torch_kernels.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core.gbrt import GBRT, GBRTConfig
+from repro_torch.kernels.gbrt_predict.ops import (
+    gbrt_predict,
+    gbrt_predict_configs,
+)
+from repro_torch.kernels.linear_scan.kernel import linear_scan_plain
+from repro_torch.kernels.linear_scan.ops import linear_scan, prefix_sum
+from repro_torch.kernels.state_replay.kernel import state_replay
+
+GBRT_TOL = 1e-4
+SCAN_TOL = 5e-5
+
+
+def replay_inputs(rng, R, nd, nc, cap, lpw, fill):
+    nows = np.sort(rng.uniform(0.0, 50_000.0, size=R))
+    guess = rng.integers(-1, nc + (1 if nd else 0), size=R)
+    edge_col = nc if nd else -1
+    busy0 = np.full((nc, cap), np.inf)
+    last0 = np.full((nc, cap), -np.inf)
+    cnt0 = rng.integers(0, fill + 1, size=nc)
+    for c in range(nc):
+        k = int(cnt0[c])
+        last0[c, :k] = rng.uniform(-30_000.0, 20_000.0, size=k)
+        busy0[c, :k] = last0[c, :k]
+    kw = dict(edge_col=edge_col, lpw=lpw, t_idl=20_000.0)
+    if nd:
+        kw.update(ecomp=rng.uniform(100.0, 3000.0, size=(R, nd)),
+                  h0=rng.uniform(0.0, 5000.0, size=nd),
+                  nom_fixed=rng.integers(0, nd, size=R))
+    if nc:
+        kw.update(occw=rng.uniform(200.0, 4000.0, size=(R, nc)),
+                  occc=rng.uniform(1200.0, 6000.0, size=(R, nc)),
+                  busy0=busy0, last0=last0, cnt0=cnt0)
+    return nows, guess, kw
+
+
+def to_torch(nows, guess, kw):
+    t = {k: (torch.as_tensor(v, dtype=torch.int32)
+             if k in ("nom_fixed", "cnt0") else torch.as_tensor(v))
+         if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    return (torch.as_tensor(nows), torch.as_tensor(guess, dtype=torch.int32),
+            t)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernels run only on one")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_on_card(cuda_device, rng):
+    """Each CUDA kernel against its plain version on the same inputs:
+    float64 bit-equal, float32 within the reference tolerances."""
+    x = rng.normal(size=(5000, 2)) * 100.0
+    m = GBRT.fit(x[:400], x[:400, 0] * 2.0 + np.sin(x[:400, 1] / 30.0),
+                 GBRTConfig(n_trees=50, max_depth=3))
+    for dtype, tol in ((torch.float64, 0.0), (torch.float32, GBRT_TOL)):
+        xt = torch.as_tensor(x, dtype=dtype)
+        got = gbrt_predict(m, xt.to(cuda_device)).cpu()
+        np.testing.assert_allclose(got.numpy(), gbrt_predict(m, xt).numpy(),
+                                   rtol=tol, atol=tol)
+        sizes = xt[:, 0].contiguous()
+        mem = torch.tensor([1536.0, 2048.0], dtype=dtype)
+        got = gbrt_predict_configs([m, m], mem.to(cuda_device),
+                                   sizes.to(cuda_device)).cpu()
+        want = gbrt_predict_configs([m, m], mem, sizes)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol,
+                                   atol=tol)
+    xs = torch.as_tensor(rng.normal(size=(2, 256, 64)), dtype=torch.float32)
+    a = torch.as_tensor(rng.uniform(0.1, 1.0, size=(2, 256, 64)),
+                        dtype=torch.float32)
+    y, s = linear_scan(xs.to(cuda_device), a.to(cuda_device))
+    yp, sp = linear_scan_plain(xs, a)
+    np.testing.assert_allclose(y.cpu().numpy(), yp.numpy(), atol=SCAN_TOL)
+    d = torch.as_tensor(rng.normal(size=4097))
+    assert torch.equal(prefix_sum(d.to(cuda_device)).cpu(), prefix_sum(d))
+    nows, guess, kw = replay_inputs(rng, 2000, 3, 4, 64, True, 20)
+    tn, tg, tkw = to_torch(nows, guess, kw)
+    want = state_replay(tn, tg, **tkw)
+    got = state_replay(tn.to(cuda_device), tg.to(cuda_device),
+                       **{k: v.to(cuda_device) if torch.is_tensor(v) else v
+                          for k, v in tkw.items()})
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_.cpu(), b_), "state_replay"
+    assert kernels.launch_counts()["state_replay"] >= 1
+
+
+@pytest.mark.cuda
+def test_walk_on_card(cuda_device, rng):
+    """The decision walk kernel against its plain version, both policies."""
+    from repro_torch.kernels.state_replay.kernel import (
+        state_walk,
+        state_walk_plain,
+    )
+
+    nows, guess, kw = replay_inputs(rng, 3000, 3, 4, 128, True, 30)
+    R, nc, nd = 3000, 4, 3
+    tn, _, tkw = to_torch(nows, guess, kw)
+    tkw.pop("edge_col")
+    tkw.pop("nom_fixed")
+    tkw.update(
+        elat=torch.as_tensor(rng.uniform(500.0, 4000.0, size=(R, nd))),
+        latw=torch.as_tensor(rng.uniform(500.0, 3000.0, size=(R, nc))),
+        latc=torch.as_tensor(rng.uniform(1500.0, 6000.0, size=(R, nc))),
+        costc=torch.as_tensor(rng.choice([2e-6, 4e-6, 6e-6], size=(R, nc))),
+        s0=torch.tensor(0.0, dtype=torch.float64), c_max=3e-6, alpha=0.05)
+    for minlat in (True, False):
+        args = dict(tkw, minlat=minlat, deadline=2500.0)
+        want = state_walk_plain(tn, R - 7, **args)
+        got = state_walk(tn.to(cuda_device), R - 7,
+                         **{k: v.to(cuda_device) if torch.is_tensor(v) else v
+                            for k, v in args.items()})
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_torch_serve_on_card_matches_cpu(cuda_device):
+    """A small bursty stream served with the torch backend on the card is
+    decision-identical to the numpy oracle on the CPU (floats within 1e-9)
+    and runs every kernel of the path."""
+    from repro_torch.core.decision import DecisionEngine, MinLatencyPolicy
+    from repro_torch.core.fit import build_fleet_predictor, fit_app
+    from repro_torch.core.runtime import PlacementRuntime, TwinBackend
+    from repro_torch.core.workload import BurstyWorkload
+
+    configs, fleet = (1280, 1536, 1792), {"edge0": 1.0, "edge1": 1.0,
+                                           "edge2": 0.6}
+    twin, models = fit_app("IR", seed=0, n_inputs=120, configs=configs)
+    tasks = BurstyWorkload(rate_per_s=4.0, size_sampler=twin.sample_input,
+                           burst_multiplier=8.0, mean_quiet_s=10.0,
+                           mean_burst_s=6.0, seed=31).generate(3000)
+
+    def serve(device, backend):
+        pred = build_fleet_predictor(models, dict(fleet), configs=configs)
+        eng = DecisionEngine(predictor=pred, device=device,
+                             policy=MinLatencyPolicy(c_max=6e-6, alpha=0.05))
+        rt = PlacementRuntime(eng, TwinBackend(
+            twin, seed=11, edge_names=tuple(fleet), edge_speed=fleet))
+        return rt, rt.serve_stream(tasks, chunk_size=1024,
+                                   array_backend=backend)
+
+    _, ref = serve("cpu", "numpy")
+    kernels.reset_launch_counts()
+    rt, res = serve(cuda_device, "torch")
+    counts = kernels.launch_counts()
+    assert list(ref.records.targets) == list(res.records.targets)
+    for col in ("predicted_cold", "actual_cold", "feasible"):
+        assert np.array_equal(getattr(ref.records, col),
+                              getattr(res.records, col)), col
+    for col in ("predicted_latency_ms", "predicted_cost", "allowed_cost",
+                "actual_latency_ms"):
+        np.testing.assert_allclose(getattr(res.records, col),
+                                   getattr(ref.records, col), rtol=1e-9,
+                                   atol=1e-12, err_msg=col)
+    for k in ("gbrt_predict_multi", "linear_scan", "state_replay",
+              "state_walk"):
+        assert counts[k] > 0, k
+    assert rt.stream_stats["residency"]["fallback_chunks"] == 0
