@@ -334,7 +334,8 @@ def phase_kernels(ctx, dev) -> list[dict]:
     core = torch_core.core_for(rt.engine)
     if core is None:
         fail("the slice's engine is not eligible for the torch core")
-    nc, nd, cap = core.n_cloud, core.n_dev, 512
+    # the pool the main path's first chunk grows to on its one regrow
+    nc, nd, cap = core.n_cloud, core.n_dev, core.cap_limit
     P = core._predict(sizes, torch.as_tensor(
         np.asarray(chunk.bytes, np.float64), device=dev))
     nows = torch.as_tensor(np.asarray(chunk.arrival_ms, np.float64),
@@ -458,15 +459,13 @@ def phase_serve(ctx, dev) -> dict:
         log(f"[serve] {name} torch (cuda): {secs:.1f} s, "
             f"{N_TASKS / secs:.0f} tasks/s, {split(rt)}, "
             f"launches {json.dumps(counts)}, "
-            f"residency {json.dumps(r)}, fixed-point passes "
-            f"{_core(rt).passes} (walk misses {_core(rt).walk_misses}, pool "
-            f"regrows {_core(rt).resident_regrows}), vs oracle "
+            f"residency {json.dumps(r)}, pool regrows "
+            f"{_core(rt).pool_regrows} (pool cap "
+            f"{rt.engine.torch_stats['pool_cap']}), vs oracle "
             f"{json.dumps(cmp)}")
         if r["chunk_commits"] or r["fallback_syncs"] or r["fallback_chunks"] \
                 or r["state_syncs"] != 1 or r["resident_chunks"] != 4:
             fail(f"{name}: residency counters {r}")
-        if _core(rt).walk_misses:
-            fail(f"{name}: the walk's codes needed more than one replay pass")
         for k in ("gbrt_predict_multi", "linear_scan", "state_replay",
                   "state_walk"):
             if name == "min_latency" or k != "linear_scan":

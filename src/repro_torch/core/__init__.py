@@ -10,9 +10,9 @@ edge-cloud serverless), module by module like ``repro.core``:
   ensemble kernel when its ``device`` is a CUDA device;
 - ``decision`` — the Decision Engine; ``array_backend="torch"`` routes each
   chunk through ``torch_core``;
-- ``torch_core`` — the device placement core: predict -> place fixed point
-  over the state-replay, linear-scan and GBRT kernels, with cross-chunk
-  residency;
+- ``torch_core`` — the device placement core: predict -> sequential walk ->
+  one verifying replay, over the state-walk, state-replay, linear-scan and
+  GBRT kernels, with cross-chunk residency;
 - ``runtime`` — ``PlacementRuntime`` and the AWS twin backend; ``serve_stream``
   accepts ``array_backend="torch"`` and ``device=``.
 """

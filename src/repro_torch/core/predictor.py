@@ -28,8 +28,8 @@ Two prediction paths:
   arithmetic, vectorized).
 
 On the batched path the GBRT compute model can additionally be routed through
-the CUDA ensemble kernel of ``repro_torch.kernels.gbrt_predict`` (see
-``GBRT_KERNEL_MODE``): when the Predictor's ``device`` is a CUDA device,
+the CUDA ensemble kernel of ``repro_torch.kernels.gbrt_predict``: the route
+is decided by the Predictor's ``device`` alone. On a CUDA device,
 batches of >= ``GBRT_KERNEL_MIN_BATCH`` rows run the float64 tree-walk kernel,
 which is bit-identical to the numpy walk and to the cached step tables.
 Everywhere else (``device`` None or the CPU) the cached step tables serve.
@@ -57,14 +57,8 @@ from repro_torch.core.workload import task_arrays
 
 EDGE = "edge"
 
-# GBRT kernel routing for the batched path:
-#   "auto"  — use the CUDA kernel when the Predictor's device is a CUDA device
-#             and the batch has at least GBRT_KERNEL_MIN_BATCH rows; the
-#             cached step tables otherwise;
-#   "force" — always use the kernel wrapper (on a CPU device it runs the
-#             kernel's plain torch version);
-#   "off"   — never use the kernel.
-GBRT_KERNEL_MODE = "auto"
+# smallest batch the CUDA GBRT kernel serves on a CUDA device (the cached
+# step tables serve smaller batches and every batch off the card)
 GBRT_KERNEL_MIN_BATCH = 4096
 
 
@@ -73,10 +67,8 @@ def _on_cuda(device) -> bool:
 
 
 def _kernel_route(model, n: int, device) -> bool:
-    mode = GBRT_KERNEL_MODE
-    return (mode != "off" and hasattr(model, "thresholds")
-            and (mode == "force"
-                 or (n >= GBRT_KERNEL_MIN_BATCH and _on_cuda(device))))
+    return (hasattr(model, "thresholds") and n >= GBRT_KERNEL_MIN_BATCH
+            and _on_cuda(device))
 
 
 # Serving-side GBRT step-table cache, keyed ``(id(model), comp_feature)``.
@@ -184,8 +176,7 @@ def gbrt_batch_predict(model, feats: np.ndarray, device=None) -> np.ndarray:
 
         from repro_torch.kernels.gbrt_predict.ops import gbrt_predict
 
-        dev = device if device is not None else torch.device("cpu")
-        x = torch.as_tensor(np.asarray(feats, np.float64), device=dev)
+        x = torch.as_tensor(np.asarray(feats, np.float64), device=device)
         return gbrt_predict(model, x).cpu().numpy()
     if (hasattr(model, "const1_table") and feats.ndim == 2
             and feats.shape[1] == 2 and feats.shape[0] > 0

@@ -922,8 +922,8 @@ def _prefetched_chunks(it, eng, counters: dict):
     A single transfer thread pulls chunk k+1 from the workload iterator AND
     stages its padded task columns on the device (``torch_core.stage_chunk``:
     pinned host buffers copied on a side CUDA stream, with an event that
-    ``place_chunk`` waits on) while the consumer runs chunk k's fixed point
-    — overlapping workload generation and the host-to-device copy with
+    ``place_chunk`` waits on) while the consumer places chunk k —
+    overlapping workload generation and the host-to-device copy with
     device compute. The staged bundle is handed to ``place_chunk`` through
     ``eng._torch_staged`` (set here on the CONSUMER thread at yield time, so
     the dict is never raced) and validated by chunk identity; a chunk that
@@ -1109,8 +1109,7 @@ class PlacementRuntime:
           configured (those read/mutate host placement state mid-stream).
         - ``prefetch`` (default on) double-buffers chunk staging: a
           transfer thread pulls chunk k+1 from the workload iterator and
-          copies its task columns to the device while chunk k's fixed point
-          runs.
+          copies its task columns to the device while chunk k places.
 
         ``stream_stats["residency"]`` afterwards reports the resident-chunk
         / sync / prefetch counters for this stream, and ``fallback_chunks``,

@@ -16,19 +16,17 @@ One chunk:
    on the card (one launch for every cloud config), or as a gather over the
    cached serving step tables on the CPU. Both are bit-identical to the
    oracle's step tables.
-2. **Place** — a fixed point over the speculated policy-view codes
-   (``-1`` = "no state effects yet", the frozen-state guess), driven from the
-   host with one equality sync per pass, seeded with the exact sequential
-   decisions of the ``state_walk`` kernel. Each pass replays the sequential
-   state from the chunk-start state under the current guess: the edge FIFO
-   horizons with the least-predicted-wait nominations and the CIL container
-   pools through the ``state_replay`` kernel, the Alg. 1 surplus bank through
-   the ``linear_scan`` prefix kernel; then ``allowed = c_max + alpha *
+2. **Place** — the ``state_walk`` kernel decides every row sequentially
+   from the exact state (the numpy core's scalar walk on the device); its
+   policy-view codes (``-1`` = pad row) are then verified as a fixed point
+   in ONE pass with one host sync: the sequential state is replayed from
+   the chunk-start state under those codes — the edge FIFO horizons with
+   the least-predicted-wait nominations and the CIL container pools through
+   the ``state_replay`` kernel, the Alg. 1 surplus bank through the
+   ``linear_scan`` prefix kernel — then ``allowed = c_max + alpha *
    s_before`` (two separate ops) and the policy's masked lexicographic
-   argmins. By the induction the numpy repair loop relies on, the exact
-   prefix grows by >= 1 row per pass, so the fixed point IS the sequential
-   trajectory, reached in <= R+1 passes from any guess — and in one pass
-   from the walk's, which the replay thereby verifies.
+   argmins must give the same codes. A mismatch raises. Every output column
+   comes from the replay, not from the walk.
 3. **Commit or stay resident** — decision outputs come to the host in one
    copy. Without stream residency (a standalone ``place_many``) the CIL
    pools, edge horizons and surplus bank are written back like the numpy
@@ -42,7 +40,7 @@ One chunk:
    containers are never warm-reusable. ``stage_chunk`` (run by
    ``runtime._prefetched_chunks`` on a transfer thread) copies the next
    chunk's task columns from pinned host memory on a side CUDA stream while
-   the current chunk's fixed point runs; ``place_chunk`` waits on its event.
+   the current chunk places; ``place_chunk`` waits on its event.
 
 Parity contract. Torch eager never contracts a multiply and an add into an
 FMA, every division here divides by a device tensor (a true division, not a
@@ -83,9 +81,14 @@ from repro_torch.core.pricing import EdgePricing, LambdaPricing
 from repro_torch.core.workload import task_arrays
 from repro_torch.kernels.gbrt_predict.ops import gbrt_predict_configs
 from repro_torch.kernels.linear_scan.ops import prefix_sum
-from repro_torch.kernels.state_replay.kernel import state_replay, state_walk
+from repro_torch.kernels.state_replay.kernel import (
+    SMEM_LIMIT,
+    state_replay,
+    state_walk,
+    walk_smem_bytes,
+)
 
-POOL_MIN_CAP = 8        # starting CIL container-pool capacity (doubles on demand)
+POOL_MIN_CAP = 8        # starting CIL container-pool capacity (grows on overflow)
 PAD_MIN = 8             # minimum padded chunk rows
 I32 = torch.int32
 
@@ -99,6 +102,17 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
+
+
+def max_pool_cap(n_dev: int, n_cloud: int) -> int:
+    """The largest power-of-two pool capacity whose pools the ``state_walk``
+    kernel's one block holds in shared memory (2048 slots for 4 configs).
+    The walk scans only the live slots, so a large capacity costs a copy of
+    the pools per launch and nothing per row."""
+    cap = POOL_MIN_CAP
+    while n_cloud and walk_smem_bytes(n_dev, n_cloud, 2 * cap) <= SMEM_LIMIT:
+        cap *= 2
+    return cap
 
 
 # Device-resident tables, keyed on model identity + device with the
@@ -215,12 +229,9 @@ def _extract_edge(dev) -> _EdgeSpec:
 def _engine_key(engine) -> tuple:
     """Cheap identity key for the per-engine core cache. Model swaps (online
     refit) change ids; ``valid_for`` weakref-guards against id recycling."""
-    from repro_torch.core import predictor as predictor_mod
-
     pred = engine.predictor
     ids = [id(pred), id(engine.policy), type(engine.policy),
-           type(engine.balancer), pred.quantile, str(engine.device),
-           predictor_mod.GBRT_KERNEL_MODE]
+           type(engine.balancer), pred.quantile, str(engine.device)]
     for tgt in pred.cloud_targets:
         ids.append((id(tgt), id(tgt.comp_model), id(tgt.upld_model),
                     id(tgt.start_warm), id(tgt.start_cold),
@@ -257,7 +268,6 @@ class TorchPlacementCore:
         self.edge_col = self.T - 1 if self.has_edge else -1
         self.t_idl = float(pred.cil.t_idl_ms)
 
-        from repro_torch.core import predictor as predictor_mod
         from repro_torch.core.decision import (
             LeastPredictedWaitBalancer,
             MinLatencyPolicy,
@@ -266,10 +276,10 @@ class TorchPlacementCore:
         self.is_minlat = type(engine.policy) is MinLatencyPolicy
         self.lpw = (self.n_dev > 1
                     and type(engine.balancer) is LeastPredictedWaitBalancer)
-        mode = predictor_mod.GBRT_KERNEL_MODE
-        self.use_gbrt_kernel = bool(self.n_cloud) and (
-            mode == "force" or (mode == "auto"
-                                and self.device.type == "cuda"))
+        self.use_gbrt_kernel = bool(self.n_cloud) \
+            and self.device.type == "cuda"
+        # the largest pool the walk's one block holds in shared memory
+        self.cap_limit = max_pool_cap(self.n_dev, self.n_cloud)
         self.key = _engine_key(engine)
         self._targets = list(pred.cloud_targets) + list(pred.edge_fleet or ())
         self._refs = [weakref.ref(o) for o in (
@@ -291,9 +301,7 @@ class TorchPlacementCore:
         self.fallback_syncs = 0   # ... of which were forced by a fallback
         self.resident_chunks = 0  # chunks absorbed without a host sync
         self.chunk_commits = 0    # per-chunk host commits (no residency)
-        self.resident_regrows = 0  # resident chunks replayed after overflow
-        self.passes = 0           # fixed-point passes over all chunks
-        self.walk_misses = 0      # fixed points needing > 1 verifying pass
+        self.pool_regrows = 0     # chunks walked again after a pool overflow
 
     # ------------------------------------------------------------ lifecycle
     def valid_for(self, engine) -> bool:
@@ -473,15 +481,13 @@ class TorchPlacementCore:
             cold.to(DTYPE), st["COMP"][rr, safe], wait, feas.to(DTYPE),
             allowed, nom.to(DTYPE)])
 
-    def _fixed_point(self, P: dict, S: dict, R: int):
-        """Host-driven fixed point: replay, choose, and one equality sync per
-        pass, until the codes reproduce the guess they were computed from.
-
-        The first guess is the ``state_walk`` kernel's sequential decisions,
-        the exact trajectory, so one replay pass normally verifies it. The
-        fixed point does not rely on that: from any guess it converges in
-        <= R+1 passes. Returns ``None`` when the walk's pool overflowed (the
-        caller grows the pool and retries)."""
+    def _walk_and_verify(self, P: dict, S: dict, R: int):
+        """The chunk's decisions: the ``state_walk`` kernel decides every row
+        from the exact sequential state, then ONE replay pass recomputes the
+        state under those codes and the policy chooses again from it. The
+        codes must reproduce themselves (one sync); a mismatch is a fault of
+        the walk or the replay and raises. Returns ``None`` when the walk's
+        pool overflowed (the caller grows the pool and walks again)."""
         g, walk_ovf = state_walk(
             P["nows"], P["n"], ecomp=P.get("ECOMP"), elat=P.get("ELAT"),
             h0=S.get("h0"), nom_fixed=P.get("nom_fixed"), lpw=self.lpw,
@@ -492,27 +498,23 @@ class TorchPlacementCore:
             s0=S.get("s0"), deadline=P["deadline"])
         if self.n_cloud and bool(walk_ovf.any()):
             return None  # the walk's pool overflowed: grow it first
-        passes = 0
-        converged = False
-        st = code = feas = allowed = None
-        for _ in range(R + 2):
-            st = self._state(g, P, S)
-            if self.is_minlat:
-                # two rounded ops — the oracle's c_max + alpha * s_before
-                allowed = torch.add(torch.mul(st["s_before"], P["alpha"]),
-                                    P["c_max"])
-            else:
-                allowed = self._inf.expand(R)
-            code, feas = self._choose(st["LAT"], st["COST"], allowed,
-                                      P["deadline"], P["valid"])
-            passes += 1
-            if torch.equal(code, g):
-                converged = True
-                break
-            g = code
-        self.passes += passes
-        self.walk_misses += passes > 1
-        return st, code, feas, allowed, passes, converged
+        st = self._state(g, P, S)
+        if self.is_minlat:
+            # two rounded ops — the oracle's c_max + alpha * s_before
+            allowed = torch.add(torch.mul(st["s_before"], P["alpha"]),
+                                P["c_max"])
+        else:
+            allowed = self._inf.expand(R)
+        code, feas = self._choose(st["LAT"], st["COST"], allowed,
+                                  P["deadline"], P["valid"])
+        bad = (code != g).any()
+        if self.n_cloud:
+            bad = bad | st["rep"].overflow.any()
+        if bool(bad):
+            raise RuntimeError(
+                "torch placement: the replay of the state_walk decisions "
+                "does not reproduce them")
+        return st, code, feas, allowed
 
     def _compact(self, busy, last, cnt, t_last: float):
         """Device-side stable pool compaction == the deferred reap (exact:
@@ -757,37 +759,34 @@ class TorchPlacementCore:
                 cap = _next_pow2(max_existing + 1)
             S = self._seed_state(rs, pools, cap, edge_queues, dev_names,
                                  policy)
-            fp = self._fixed_point(P, S, R)
-            if fp is not None:
-                st, code, feas, allowed, passes, converged = fp
-                overflow = bool(st["rep"].overflow.any()) if self.n_cloud \
-                    else False
-                if converged and not overflow:
-                    break
-            # pool too small for this chunk's cold starts (clamped writes may
-            # also stall convergence): nothing was committed (the seed is
-            # never written), so the chunk simply replays
-            if rs is not None:
-                self.resident_regrows += 1
-                if not compacted and self.n_cloud:
-                    # reap ON THE DEVICE first — a long resident stream
-                    # accumulates dead records (the deferred reap), so
-                    # compaction usually beats growing the pool
-                    rs.busy, rs.last, rs.cnt = self._compact(
-                        rs.busy, rs.last, rs.cnt, rs.t_last)
-                    rs.cap = int(rs.busy.shape[1])
-                    rs.cnt_max = int(rs.cnt.max())
-                    max_existing = rs.cnt_max
-                    compacted = True
-                    continue
-            # ... against a doubled pool, capped at existing+R where
-            # overflow is impossible and convergence is guaranteed
-            new_cap = min(cap * 2, _next_pow2(max_existing + R))
+            out = self._walk_and_verify(P, S, R)
+            if out is not None:
+                break
+            # pool too small for this chunk's cold starts: nothing was
+            # committed (the seed is never written), so the chunk walks again
+            self.pool_regrows += 1
+            if rs is not None and not compacted:
+                # reap ON THE DEVICE first — a long resident stream
+                # accumulates dead records (the deferred reap), so
+                # compaction usually beats growing the pool
+                rs.busy, rs.last, rs.cnt = self._compact(
+                    rs.busy, rs.last, rs.cnt, rs.t_last)
+                rs.cap = int(rs.busy.shape[1])
+                rs.cnt_max = int(rs.cnt.max())
+                max_existing = rs.cnt_max
+                compacted = True
+                continue
+            # ... against the overflow-proof existing + n slots, or the
+            # largest pool the walk's block holds when that is smaller (a
+            # re-walk costs a whole chunk; a larger pool costs ~nothing)
+            new_cap = min(_next_pow2(max_existing + n), self.cap_limit)
             if new_cap <= cap:
                 raise RuntimeError(
-                    "torch placement did not converge with an "
-                    "overflow-proof container pool")
+                    f"torch placement: a chunk of {n} rows needs more than "
+                    f"{cap} container slots in one pool, the most the "
+                    "state_walk kernel's block holds")
             cap = new_cap
+        st, code, feas, allowed = out
         self._cap_hint = cap
 
         block = self._finalize(st, code, feas, allowed,
@@ -829,9 +828,9 @@ class TorchPlacementCore:
             self.chunk_commits += 1
 
         gcode, lat, cost, cold, comp, wait, feas_h, allowed_h, nom_h = block
-        engine.columnar_stats = {"chunks": 1, "repairs": max(passes - 2, 0),
-                                 "walked": 0, "n": n}
-        engine.torch_stats = {"n": n, "passes": passes, "rows": R,
+        engine.columnar_stats = {"chunks": 1, "repairs": 0, "walked": 0,
+                                 "n": n}
+        engine.torch_stats = {"n": n, "rows": R,
                               "pool_cap": cap, "resident": residency,
                               "staged": staged is not None,
                               "device": str(dev)}

@@ -201,9 +201,9 @@ __global__ void state_replay_kernel(
 // DECIDES each row from the exact state left by the rows before it — LPW
 // nomination, warm/cold per config, Alg. 1 budget, the policy's masked
 // lexicographic minimum — and applies its effects, so its codes are the
-// sequential trajectory itself. The placement core uses them as the first
-// guess of its fixed point, which the replay then verifies in one pass
-// (without it the fixed point needs up to R+1 passes on oscillating streams).
+// sequential trajectory itself. The placement core takes them as the chunk's
+// decisions and verifies them with one replay pass (a speculated fixed point
+// from a frozen-state guess needs up to R+1 passes on oscillating streams).
 //
 // One block: warp c < nc owns config c's pool in shared memory and scans it
 // (as in cil_block); thread 0 decides the row and updates the surplus and

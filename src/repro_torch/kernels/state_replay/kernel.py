@@ -13,8 +13,8 @@ and the final state: horizons ``h_fin`` (nd,), pools ``busy``/``last``
 ``state_walk`` is the sequential decision walk over the same state: it
 DECIDES each row from the exact state the rows before it left (balancer
 nomination, warm/cold, the Alg. 1 budget, the policy's masked lexicographic
-minimum) and returns the policy-view codes — the first guess the placement
-core's fixed point verifies with one replay pass.
+minimum) and returns the policy-view codes — the chunk's decisions, which
+the placement core verifies with one replay pass.
 
 All float state is float64; replay and walk only add, multiply once for the
 budget (``c_max + alpha * s``, two rounded operations), take maxima, compare

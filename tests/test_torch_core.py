@@ -9,8 +9,8 @@ MinCost / MinLatency x 1- and 3-device fleets x chunk sizes {1, 53, 4096}
 with the least-predicted-wait balancer, plus round-robin and random
 balancers; then a hedged-policy fallback chunk mid-stream, a forced pool
 grow-and-retry, the residency counters, and the backend plumbing. Every
-chunk's fixed point must converge in ONE replay pass: the first guess, the
-``state_walk`` decisions, must already be the exact trajectory.
+chunk's ``state_walk`` decisions must be reproduced by the one verifying
+replay pass (``place_chunk`` raises otherwise; a test checks that it does).
 Tolerance: none — exact equality (``np.array_equal``) throughout.
 """
 
@@ -172,9 +172,6 @@ def test_torch_serve_bit_parity(setup, monkeypatch, policy_name, policy_fn,
     assert_records_equal(res.records, ref.records)
     stats = rt.engine.torch_stats
     assert stats is not None and stats["device"] == "cpu"
-    # the walk's decisions were the exact trajectory: ONE replay pass per
-    # fixed point verified them
-    assert torch_core.core_for(rt.engine).walk_misses == 0
     r = rt.stream_stats["residency"]
     assert r["fallback_chunks"] == 0 and r["chunk_commits"] == 0
     assert r["resident_chunks"] == rt.stream_stats["chunks"]
@@ -237,18 +234,46 @@ def test_hedged_chunk_falls_back_and_reenters_residency(setup):
 
 
 def test_pool_grow_and_retry(setup, monkeypatch):
-    """A chunk whose cold starts overflow the container pool replays against
-    a compacted / grown pool — nothing half-committed, parity intact."""
+    """A chunk whose cold starts overflow the container pool walks again
+    against a compacted (resident) or grown pool — nothing half-committed,
+    parity intact. Chunks of 16 make both happen: the first chunk grows
+    the one-slot pool, later resident chunks compact it on the device."""
     monkeypatch.setattr(torch_core, "POOL_MIN_CAP", 1)
+    compactions = []
+    compact = torch_core.TorchPlacementCore._compact
+
+    def counted(self, *args):
+        compactions.append(args[-1])
+        return compact(self, *args)
+
+    monkeypatch.setattr(torch_core.TorchPlacementCore, "_compact", counted)
     ref_rt, rt = _runtimes(setup)
     ref_tasks, tasks = _bursty(setup, 400)
-    ref = ref_rt.serve_stream(ref_tasks, chunk_size=64)
-    res = rt.serve_stream(tasks, chunk_size=64, array_backend="torch")
+    ref = ref_rt.serve_stream(ref_tasks, chunk_size=16)
+    res = rt.serve_stream(tasks, chunk_size=16, array_backend="torch")
     assert_records_equal(res.records, ref.records)
     core = torch_core.core_for(rt.engine)
-    assert core.resident_regrows >= 1
-    assert rt.engine.torch_stats["pool_cap"] > 1
+    assert core.pool_regrows >= 2 and len(compactions) >= 1
+    assert 1 < rt.engine.torch_stats["pool_cap"] <= core.cap_limit
     assert rt.stream_stats["residency"]["state_syncs"] == 1
+
+
+def test_walk_mismatch_raises(setup, monkeypatch):
+    """The verifying replay holds the walk to the sequential trajectory: a
+    walk whose codes the replay does not reproduce stops the chunk."""
+    walk = torch_core.state_walk
+
+    def wrong_walk(*args, **kwargs):
+        code, overflow = walk(*args, **kwargs)
+        code = code.clone()
+        code[0] = -1    # a live row left undecided
+        return code, overflow
+
+    monkeypatch.setattr(torch_core, "state_walk", wrong_walk)
+    _, rt = _runtimes(setup)
+    _, tasks = _bursty(setup, 40)
+    with pytest.raises(RuntimeError, match="does not reproduce"):
+        rt.serve_stream(tasks, chunk_size=40, array_backend="torch")
 
 
 def test_out_of_order_stream_falls_back(setup):
