@@ -7,20 +7,27 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build every CUDA kernel of the slice from ``src/repro_torch/csrc`` (one
+1. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build seconds
    and the ptxas resource lines;
-2. hold each kernel against its plain PyTorch version at the shapes the main
+2. hold each kernel against its plain PyTorch version at the shapes its main
    path gives it: the GBRT kernels (K1 multi-config, K2 blocked) bit-equal in
    float64 and within 1e-4 in float32; the linear scan (K3) within 5e-5 in
    float32 at an RG-LRU shape (B=2, S=4096, D=1024) and bit-equal as the
    float64 surplus prefix of a 65,536-row chunk; the state replay bit-equal
    on a 65,536-row chunk of the stream (its plain version, a per-row loop,
    runs on CPU copies of the same inputs), and so the sequential decision
-   walk, whose codes are the replay's input there as on the main path.
-   Kernel, plain and library times come from CUDA events (the plain CPU runs
-   of walk and replay from the host clock);
-3. serve the slice's stream — the STT app on 4 Lambda memory configs and a
+   walk, whose codes are the replay's input there as on the main path;
+   flash attention (K4) at llama3.2-1b's prefill shape (q (1, 32, 32, 64),
+   k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and
+   flash decode (K5) at its decode shape (k/v (1, 8, 32, 64), length 33) and
+   at B=4, S=4096 with ragged lengths and one length above S, within 5e-5 in
+   float32 and 3e-2 in bf16. Kernel, plain and library times come from CUDA
+   events (the plain CPU runs of walk and replay from the host clock); the
+   attention rows time each call from a CUDA graph of many calls (device
+   time, without the host's launch overhead, which ``eager_ms`` keeps), and
+   their library call is ``F.scaled_dot_product_attention``;
+3. serve the placement stream — the STT app on 4 Lambda memory configs and a
    3-device edge fleet (speeds 1.0/1.0/0.6, least-predicted-wait balancer),
    262,144 bursty tasks in chunks of 65,536 — through
    ``PlacementRuntime.serve_stream(array_backend="torch")`` on the card under
@@ -32,8 +39,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    which must be identical to the oracle. Every kernel's launch count is
    zeroed just before the run that drives it and read just after; each must
    be > 0, the fallback-chunk count 0, and the residency counters clean;
-4. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
+4. build llama3.2-1b at full width (16 layers, d_model 2048, 1.5 B
+   parameters) on the card from a seeded generator, in float32, and a CPU
+   copy of the same weights; run a (1, 32) prefill and 8 teacher-forced
+   decode steps past the cache (through the reference's clamped write) on
+   both, and hold the card's logits (K4, K5, cuBLAS) to the CPU's (plain
+   versions) within ``FULL_WIDTH_TOL``; then, in bf16 as an executor serves
+   it, hold a decode step replayed from its CUDA graph to the eager step
+   (bit-equal) and time prefill and decode;
+5. serve live: calibrate the slice catalog of llama3.2-1b at full width
+   (slices of 2, 4 and 8 chips, 8 tasks, 1 cold start each) and serve 48
+   Poisson requests (20/s, 96 tokens on average) under
+   ``MinLatencyPolicy(c_max=0.004, alpha=0.02)`` through
+   ``make_live_runtime(...).serve`` on the card. Every task must be served
+   and none fail, K4 and K5 (counts zeroed just before the serve, read just
+   after) must have launched, and the peak allocated memory must stay under
+   90% of the card;
+6. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
+
+A kernel's ``launches`` are its wrapper's count: the calls that launched it
+(or recorded it into a CUDA graph at a capture). The launches that decode
+graph replays run are counted apart, as ``graph_replayed``, from the graphs'
+own tally (``serving.engine.replayed_launches``).
 """
 
 from __future__ import annotations
@@ -51,10 +79,18 @@ FLEET = {"edge0": 1.0, "edge1": 1.0, "edge2": 0.6}
 N_TASKS, CHUNK = 262_144, 65_536
 C_MAX, ALPHA, DEADLINE_MS = 2.97e-5, 0.02, 250.0
 FLOAT_TOL = 1e-9
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the float64 / float32
-# vector rates (no tensor cores), at the full 700 W power limit
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the float64 / float32 vector
+# rates (no tensor cores) and the dense bf16 tensor-core rate, at the full
+# 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float64": 34e12, "float32": 67e12}
+PEAK_OPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
+ATTN_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
+# card (K4, K5, cuBLAS in float32, TF32 off) vs CPU logits of the full-width
+# model in float32: summation order differs across 16 layers
+FULL_WIDTH_TOL = 1e-4
+ARCH = "llama3.2-1b"
+PROMPT_LEN, DECODE_STEPS = 32, 8
+LIVE_C_MAX, LIVE_ALPHA = 0.004, 0.02
 
 DECISION_COLS = ("predicted_cold", "feasible")
 FLOAT_COLS = ("predicted_latency_ms", "predicted_cost", "allowed_cost")
@@ -96,14 +132,21 @@ def main() -> int:
     card = smi[0] if smi else "nvidia-smi unavailable"
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    build = phase_build()
-    ctx = make_stream()
-    rows = phase_kernels(ctx, dev)
-    serve = phase_serve(ctx, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = timed("build", phase_build)
+    ctx = timed("stream", make_stream)
+    rows = timed("kernels", phase_kernels, ctx, dev)
+    rows += timed("attention", phase_attention, dev)
+    serve = timed("serve", phase_serve, ctx, dev)
+    timed("model", phase_model, dev)
+    live = timed("live", phase_live, dev)
+    launches = {**serve["launches"], **live["launches"]}
     for row in rows:
-        row["launches"] = serve["launches"][row["name"]]
+        row["launches"] = launches[row["name"]]
+        row["graph_replayed"] = live["graph_replayed"].get(row["name"], 0)
         if row["launches"] <= 0:
-            fail(f"{row['name']} was never launched on its serve path")
+            fail(f"{row['name']} was never launched on its main path")
     log(f"build seconds: {json.dumps(build)}")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)
@@ -112,6 +155,13 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------------ phase 1
@@ -175,6 +225,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed, so the host's per-call launch overhead is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, as graph capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(g.replay, 3) / reps
+    del g
+    return ms
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -190,6 +259,7 @@ def max_err(a, b) -> float:
 
 def row(name, source, replaces, ms, plain_ms, err, nbytes, ops, dtype,
         library_ms=None, **extra) -> dict:
+    """One kernel's line; ``dtype`` names the peak rate of its bound."""
     b_ms, b_by = bound(nbytes, ops, dtype)
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -397,6 +467,317 @@ def phase_kernels(ctx, dev) -> list[dict]:
         plain_device="cpu",
         limit="latency of the R-step dependent chain of warp reductions"))
     return rows
+
+
+# ------------------------------------------------------- phase 2, attention
+def attn_inputs(shape, dtype, dev, seed):
+    import numpy as np
+    import torch
+
+    B, H, Hkv, Sq, Skv, D = shape
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.normal(size=(B, H, Sq, D)), dtype=dtype).to(dev)
+    k = torch.as_tensor(rng.normal(size=(B, Hkv, Skv, D)), dtype=dtype).to(dev)
+    v = torch.as_tensor(rng.normal(size=(B, Hkv, Skv, D)), dtype=dtype).to(dev)
+    return q, k, v
+
+
+def fa_case(shape, dtype, dev, causal, window, reps):
+    """K4 vs its plain version (and SDPA's time) at one shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        _mask,
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+
+    q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + window)
+    B, H, Hkv, Sq, Skv, D = shape
+    kw = dict(causal=causal, window=window)
+    got = flash_attention_bhsd(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    name = str(dtype).split(".")[-1]
+    if err > ATTN_TOL[name]:
+        fail(f"K4 {shape} {name} causal={causal} window={window} differs "
+             f"from its plain version by {err}")
+    mask = _mask(Sq, Skv, causal, window, dev)
+    if window:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+    pairs = int(mask.sum())  # the (q, k) pairs this mask leaves live
+    esz = q.element_size()
+    kernel = lambda: flash_attention_bhsd(q, k, v, **kw)  # noqa: E731
+    return dict(
+        ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
+        plain_ms=graph_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                          max(reps // 10, 2)),
+        library_ms=graph_ms(sdpa, reps), err=err,
+        nbytes=esz * (2 * q.numel() + k.numel() + v.numel()),
+        ops=4.0 * B * H * pairs * D, dtype=name)
+
+
+def fd_case(shape, dtype, dev, lengths, reps):
+    """K5 vs its plain version (and SDPA's time) at one shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+        decode_attention_plain,
+    )
+
+    q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + 1)
+    B, H, Hkv, _, S, D = shape
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = decode_attention_bhd(q, k, v, lens)
+    want = decode_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    name = str(dtype).split(".")[-1]
+    if err > ATTN_TOL[name]:
+        fail(f"K5 {shape} {name} lengths={lengths} differs from its plain "
+             f"version by {err}")
+    valid = torch.arange(S, device=dev)[None, :] < lens.long()[:, None]
+    mask = valid[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    live = int(valid.sum())  # the cache slots this run's lengths leave live
+    esz = q.element_size()
+    kernel = lambda: decode_attention_bhd(q, k, v, lens)  # noqa: E731
+    return dict(
+        ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
+        plain_ms=graph_ms(lambda: decode_attention_plain(q, k, v, lens),
+                          max(reps // 10, 2)),
+        library_ms=graph_ms(sdpa, reps), err=err,
+        nbytes=esz * (2 * q.numel() + 2 * live * Hkv * D) + 4 * B,
+        ops=4.0 * H * live * D, dtype=name)
+
+
+def phase_attention(dev) -> list[dict]:
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, H, Hkv, Sq, Skv, D): llama3.2-1b's prefill of a (1, 32) prompt
+    path = (1, 32, 8, 32, 32, 64)
+    fa = fa_case(path, bf16, dev, True, 0, 200)
+    fa32 = fa_case(path, f32, dev, True, 0, 200)
+    big = (1, 32, 8, 2048, 2048, 64)
+    fab = fa_case(big, bf16, dev, True, 0, 20)
+    faw = fa_case(big, bf16, dev, True, 256, 20)
+    extra = {f"{tag}_{key}": c[key] for tag, c in
+             (("f32", fa32), ("s2048", fab), ("s2048_w256", faw))
+             for key in ("ms", "plain_ms", "library_ms", "err")}
+    extra["eager_ms"] = fa["eager_ms"]
+    for tag, c in (("s2048", fab), ("s2048_w256", faw)):
+        extra[f"{tag}_bound_ms"] = bound(c["nbytes"], c["ops"], c["dtype"])[0]
+    rows = [row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:98", fa["ms"],
+                fa["plain_ms"], fa["err"], fa["nbytes"], fa["ops"], "bfloat16",
+                library_ms=fa["library_ms"],
+                shape="q (1, 32, 32, 64) k/v (1, 8, 32, 64) bf16 causal; "
+                      "s2048: q (1, 32, 2048, 64) k/v (1, 8, 2048, 64)",
+                **extra)]
+    # (B, H, Hkv, 1, S, D): a decode step of the serving executor, whose
+    # lengths run past its 32-slot cache (pos + 1 >= 33)
+    path = (1, 32, 8, 1, 32, 64)
+    fd = fd_case(path, bf16, dev, [33], 200)
+    fd32 = fd_case(path, f32, dev, [33], 200)
+    big = (4, 32, 8, 1, 4096, 64)
+    fdb = fd_case(big, bf16, dev, [4096 + 7, 1000, 3001, 17], 50)
+    extra = {f"{tag}_{key}": c[key] for tag, c in
+             (("f32", fd32), ("b4_s4096", fdb))
+             for key in ("ms", "plain_ms", "library_ms", "err")}
+    extra["eager_ms"] = fd["eager_ms"]
+    extra["b4_s4096_bound_ms"] = bound(fdb["nbytes"], fdb["ops"],
+                                       fdb["dtype"])[0]
+    rows.append(row("decode_attention",
+                    "src/repro_torch/csrc/decode_attention.cu",
+                    "src/repro/kernels/decode_attention/kernel.py:75",
+                    fd["ms"], fd["plain_ms"], fd["err"], fd["nbytes"],
+                    fd["ops"], "bfloat16", library_ms=fd["library_ms"],
+                    shape="q (1, 32, 1, 64) k/v (1, 8, 32, 64) bf16 length "
+                          "33; b4_s4096: k/v (4, 8, 4096, 64) lengths "
+                          "4103/1000/3001/17", **extra))
+    return rows
+
+
+# ------------------------------------------------------------------ phase 4
+def phase_model(dev) -> None:
+    """llama3.2-1b at full width: card vs CPU logits in float32, then the
+    CUDA-graph decode step vs the eager one in bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.serving.engine import DecodeGraph, make_compiled_steps
+
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab, size=DECODE_STEPS).astype(np.int32)
+
+    t0 = time.perf_counter()
+    cfg32 = cfg.with_updates(dtype="float32")
+    model = build_model(cfg32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen, device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    n_params = sum(v.numel() for v in params.values())
+    errs = []
+    runs = {}
+    for where, p in (("cuda", params), ("cpu", cpu_params)):
+        d = dev if where == "cuda" else torch.device("cpu")
+        logits, cache = model.prefill(
+            p, {"tokens": torch.as_tensor(prompt, device=d)})
+        out = [logits.cpu()]
+        for t in forced:  # teacher-forced, past the 32-slot cache
+            logits, cache = model.decode_step(
+                p, cache, {"token": torch.tensor([t], dtype=torch.int32,
+                                                 device=d)})
+            out.append(logits.cpu())
+        runs[where] = (out, {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        if not torch.isfinite(a).all():
+            fail("full-width logits on the card are not finite")
+        errs.append(max_err(a, b))
+    cache_err = max(max_err(runs["cuda"][1][k], runs["cpu"][1][k])
+                    for k in ("k", "v"))
+    if int(runs["cuda"][1]["pos"]) != PROMPT_LEN + DECODE_STEPS:
+        fail("the decode position did not advance once per step")
+    scale = max(float(runs["cpu"][0][0].abs().max()), 1.0)
+    log(f"[model] {ARCH} full width, {n_params:,} parameters, float32: card "
+        f"vs CPU max abs logit error per step {json.dumps(errs)} (logits up "
+        f"to {scale:.2f}), cache error {cache_err:.3g}, tolerance "
+        f"{FULL_WIDTH_TOL} ({time.perf_counter() - t0:.1f} s)")
+    if max(errs) > FULL_WIDTH_TOL or cache_err > FULL_WIDTH_TOL:
+        fail(f"full-width card logits differ from the CPU's by {max(errs)}")
+    del params, cpu_params, runs
+    torch.cuda.empty_cache()
+
+    # bf16, as an executor holds and serves it
+    t0 = time.perf_counter()
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        cfg, seed=1, device=dev)
+    toks = torch.as_tensor(prompt, device=dev)
+    tok = torch.zeros(1, dtype=torch.int32, device=dev)
+    _, cache = prefill_fn(params, {"tokens": toks})
+    _, c2 = decode_fn(params, {k: v.clone() for k, v in cache.items()},
+                      {"token": tok})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = DecodeGraph(decode_fn, params, cache)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph.load(cache)
+    eager = {k: v.clone() for k, v in cache.items()}
+    diffs, equal = [], True
+    for t in forced:
+        graph.token.fill_(int(t))
+        g = graph.step().clone()
+        e, eager = decode_fn(params, eager, {"token": torch.tensor(
+            [t], dtype=torch.int32, device=dev)})
+        equal &= torch.equal(g, e)
+        diffs.append(max_err(g, e))
+    equal &= all(torch.equal(graph.cache[k], eager[k]) for k in ("k", "v"))
+    if not equal:
+        fail(f"graph decode differs from the eager step: {diffs}")
+    eager_ms = cuda_ms(lambda: decode_fn(params, eager, {"token": tok}), 20)
+    step_ms = cuda_ms(graph.step, 50)
+    prefill_ms = cuda_ms(lambda: prefill_fn(params, {"tokens": toks}), 20)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[model] bf16 serving weights: set-up {build_s:.2f} s, graph capture "
+        f"{capture_s:.2f} s; graph decode bit-equal to eager over "
+        f"{DECODE_STEPS} steps ({equal}); prefill {prefill_ms:.3f} ms, decode "
+        f"step {step_ms:.3f} ms from the graph, {eager_ms:.3f} ms eager; "
+        f"peak allocated {mem:.1f} GiB")
+    del params, graph, cache, c2, eager
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 5
+def phase_live(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.decision import MinLatencyPolicy
+    from repro_torch.serving import (
+        SliceSpec,
+        calibrate_catalog,
+        llm_workload,
+        make_live_runtime,
+    )
+    from repro_torch.serving.engine import (
+        replayed_launches,
+        reset_replayed_launches,
+    )
+
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    specs = [SliceSpec("slice2", 2), SliceSpec("slice4", 4),
+             SliceSpec("slice8", 8)]
+    cat = calibrate_catalog(cfg, specs, n_tasks=8, n_cold=1, device=dev)
+    calib_s = time.perf_counter() - t0
+    log(f"[live] calibrated {len(specs)} slices of {ARCH} in {calib_s:.1f} s: "
+        f"cold start {cat.start_cold.mean:.1f} +- {cat.start_cold.std:.1f} ms, "
+        f"warm start {cat.start_warm.mean:.3f} ms")
+    rt = make_live_runtime(cat, MinLatencyPolicy(c_max=LIVE_C_MAX,
+                                                 alpha=LIVE_ALPHA), device=dev)
+    tasks = llm_workload(48, rate_per_s=20.0, seed=1, mean_tokens=96.0)
+    kernels.reset_launch_counts()
+    reset_replayed_launches()
+    t0 = time.perf_counter()
+    res = rt.serve(tasks)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    replayed = replayed_launches()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    pool = rt.backend.pool
+    hist = {}
+    for target in res.records.targets:
+        hist[target] = hist.get(target, 0) + 1
+    log(f"[live] served {res.n} tasks in {serve_s:.1f} s: avg actual latency "
+        f"{res.avg_actual_latency_ms:.2f} ms, p95 "
+        f"{res.p95_actual_latency_ms:.2f} ms, latency_error_pct "
+        f"{res.latency_error_pct:.2f}, cost {res.total_actual_cost:.6f}, "
+        f"placements {json.dumps(dict(sorted(hist.items())))}, cold starts "
+        f"{int(np.count_nonzero(res.records.actual_cold))}, failed "
+        f"{res.n_failed}, peak resident executors {pool.peak_resident}, "
+        f"peak allocated {peak / 2**30:.1f} of {total / 2**30:.1f} GiB, "
+        f"launches {json.dumps(counts)}, replayed from decode graphs "
+        f"{json.dumps(replayed)}")
+    if res.n != len(tasks) or res.n_failed or res.n_shed:
+        fail(f"live serve: {res.n} of {len(tasks)} served, {res.n_failed} "
+             f"failed, {res.n_shed} shed")
+    if not np.isfinite(res.avg_actual_latency_ms):
+        fail("live serve latency is not finite")
+    if peak >= 0.9 * total:
+        fail(f"live serve peak memory {peak / 2**30:.1f} GiB is over 90% of "
+             "the card")
+    for k in ("flash_attention", "decode_attention"):
+        if counts[k] <= 0:
+            fail(f"{k} was not launched by the live serve")
+    if set(replayed) != {"decode_attention"} \
+            or replayed["decode_attention"] % cfg.n_layers:
+        fail(f"decode graphs replayed {replayed}, not {cfg.n_layers} "
+             "decode_attention launches per step")
+    return {"launches": {k: counts[k] for k in
+                         ("flash_attention", "decode_attention")},
+            "graph_replayed": replayed}
 
 
 # ------------------------------------------------------------------ phase 3

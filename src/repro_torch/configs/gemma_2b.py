@@ -1,0 +1,18 @@
+"""gemma-2b [dense] — GeGLU, head_dim=256, MQA (kv=1). [arXiv:2403.08295; hf]"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="gemma-2b",
+    family="dense",
+    n_layers=18,
+    d_model=2048,
+    n_heads=8,
+    n_kv_heads=1,          # MQA on the 2b
+    head_dim=256,
+    d_ff=16384,
+    vocab=256000,
+    act="geglu",
+    norm="rmsnorm",
+    rope_theta=10000.0,
+)

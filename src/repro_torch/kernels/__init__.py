@@ -6,6 +6,8 @@ version only for tensors on the CPU; for CUDA tensors it launches the kernel
 or raises. Every wrapper counts its launches in a plain integer attribute
 ``launches`` (incremented where the kernel is launched and nowhere else);
 ``launch_counts``/``reset_launch_counts`` read and zero them all.
+``recording`` tallies the launches of one thread alone, as a CUDA-graph
+capture needs while other threads launch kernels of their own.
 
 Importing this package imports torch only: the kernels are compiled
 (``_build``) the first time a wrapper meets a CUDA tensor.
@@ -13,9 +15,17 @@ Importing this package imports torch only: the kernels are compiled
 
 from __future__ import annotations
 
+import contextlib
+
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+    )
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+    )
     from repro_torch.kernels.gbrt_predict.kernel import (
         gbrt_predict_blocked,
         gbrt_predict_multi,
@@ -30,7 +40,9 @@ def wrappers() -> dict:
             "gbrt_predict_blocked": gbrt_predict_blocked,
             "linear_scan": linear_scan_bsd,
             "state_replay": state_replay,
-            "state_walk": state_walk}
+            "state_walk": state_walk,
+            "flash_attention": flash_attention_bhsd,
+            "decode_attention": decode_attention_bhd}
 
 
 def launch_counts() -> dict[str, int]:
@@ -40,3 +52,22 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Tally, by kernel name, the launches that the calling thread makes
+    inside the block; launches of other threads are not seen. Yields the
+    dict, filled when the block ends."""
+    from repro_torch.kernels import _build
+
+    if getattr(_build._RECORDING, "tally", None) is not None:
+        raise RuntimeError("recording blocks do not nest")
+    _build._RECORDING.tally = tally = {}
+    out: dict[str, int] = {}
+    try:
+        yield out
+    finally:
+        _build._RECORDING.tally = None
+        out.update({name: tally[fn] for name, fn in wrappers().items()
+                    if fn in tally})

@@ -27,12 +27,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gbrt_predict", "linear_scan", "state_replay")
+SOURCES = ("gbrt_predict", "linear_scan", "state_replay", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
+_RECORDING = threading.local()  # .tally: {wrapper: launches} of this thread
 
 
 def nvcc() -> str:
@@ -104,10 +107,13 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """``symbol`` of library ``name`` with its ``argtypes`` declared and an
-    ``int`` (CUDA error code) result."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    ``int`` (CUDA error code) result, looked up once."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[(name, symbol)] = fn
     return fn
 
 
@@ -122,11 +128,30 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def counted(wrapper) -> None:
+    """Add one to ``wrapper.launches``: each wrapper calls this where it has
+    launched its kernel, and nowhere else. A launch is also tallied for the
+    calling thread when it is inside ``repro_torch.kernels.recording``."""
+    wrapper.launches += 1
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
 
 
+def strides(*tensors) -> ctypes.Array:
+    """All but the last element stride of each tensor in turn, as a C
+    ``long long`` array (the attention kernels read strided views whose last
+    dimension is contiguous)."""
+    vals = [s for t in tensors for s in t.stride()[:-1]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 P = ctypes.c_void_p
 I32 = ctypes.c_int
+F32 = ctypes.c_float
 F64 = ctypes.c_double

@@ -1,0 +1,106 @@
+"""Flash-attention kernel: CUDA launch wrapper and its plain version.
+
+``flash_attention_bhsd`` computes causal or local-window GQA attention over
+(B, H, S, D) operands: query head ``h`` attends with K/V head
+``h // (H // Hkv)``, query position ``i`` sees key ``j`` when ``j <= i``
+(causal) and ``j > i - window`` (``window > 0``). It replaces the Pallas
+kernel of the same name in the JAX package; the CUDA source is
+``repro_torch/csrc/flash_attention.cu``. Both versions compute in float32
+(scores, online or full softmax, the P·V product) with the TPU kernel's
+``NEG_INF = -2e38`` and ``max(l, 1e-30)``, and return the input dtype. A row
+with no visible key gives 0, as the kernel does (the reference's ``ref.py``
+would give the mean of V there; no causal self-attention row has none).
+
+The kernel reads strided views whose last dimension is contiguous, so the
+model's (B, S, H, D) tensors pass in transposed, without a copy, and ``out``
+may be such a view too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -2.0e38
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device):
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Skv, device=device)[None, :]
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= kj <= qi
+    if window and window > 0:
+        m &= kj > qi - window
+    return m
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, H, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, H, Sq, D) in q's dtype,
+    on any device: the full (Sq, Skv) score matrix in float32."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, Hkv, G, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float()) / l.clamp_min(1e-30)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def _check(q, k, v, out):
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v), ("out", out)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in dtype and device")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be a 4-d tensor with a contiguous "
+                             f"last dimension, got {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if k.shape != (B, Hkv, Skv, D) or v.shape != k.shape \
+            or out.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} out {tuple(out.shape)}")
+    if Hkv < 1 or H % Hkv or not 1 <= D <= 256:
+        raise ValueError(f"need H % Hkv == 0 and 1 <= D <= 256, got H={H} "
+                         f"Hkv={Hkv} D={D}")
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
+                         out=None):
+    """Attention of ``q`` (B, H, Sq, D) over ``k``/``v`` (B, Hkv, Skv, D);
+    see the module docstring. Returns ``out`` (allocated when not given).
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``flash_attention_{f32,bf16}`` or raise."""
+    if q.device.type == "cpu":
+        res = flash_attention_plain(q, k, v, causal=causal, window=window)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _check(q, k, v, out)
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    P, I32 = _build.P, _build.I32
+    fn = _build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}",
+                         [P] * 4 + [I32] * 6 + [P, I32, I32, _build.F32, P])
+    rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            B, H, Hkv, Sq, Skv, D, _build.strides(q, k, v, out),
+            int(bool(causal)), int(window or 0), 1.0 / (D ** 0.5),
+            _build.stream_of(q))
+    _build.check(rc, "flash_attention")
+    _build.counted(flash_attention_bhsd)
+    return out
+
+
+flash_attention_bhsd.launches = 0

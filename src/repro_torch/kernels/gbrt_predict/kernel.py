@@ -108,7 +108,7 @@ def gbrt_predict_multi(x, mem, lr, base, features, thresholds, leaves, *,
                                       leaves, out)),
             N, C, T, I, L, depth, _build.stream_of(x))
     _build.check(rc, "gbrt_predict_multi")
-    gbrt_predict_multi.launches += 1
+    _build.counted(gbrt_predict_multi)
     return out
 
 
@@ -142,7 +142,7 @@ def gbrt_predict_blocked(x, features, thresholds, leaves, *, depth: int,
     rc = fn(*(_build.ptr(t) for t in (x, features, thresholds, leaves, out)),
             N, F, T, I, L, depth, float(lr), float(base), _build.stream_of(x))
     _build.check(rc, "gbrt_predict_blocked")
-    gbrt_predict_blocked.launches += 1
+    _build.counted(gbrt_predict_blocked)
     return out
 
 

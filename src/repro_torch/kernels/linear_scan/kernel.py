@@ -53,7 +53,7 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
     rc = fn(_build.ptr(x), _build.ptr(a), _build.ptr(y), _build.ptr(state),
             B, S, D, _build.stream_of(x))
     _build.check(rc, "linear_scan")
-    linear_scan_bsd.launches += 1
+    _build.counted(linear_scan_bsd)
     return y, state
 
 

@@ -217,7 +217,7 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
             ptr(cnt0 if nc else None), ptr(cold), ptr(busy), ptr(last),
             ptr(cnt), ptr(overflow), _build.stream_of(nows))
     _build.check(rc, "state_replay")
-    state_replay.launches += 1
+    _build.counted(state_replay)
     return ReplayOut(hb, nom, h_fin, cold, busy, last, cnt, overflow)
 
 
@@ -396,7 +396,7 @@ def state_walk(nows, n: int, *, ecomp=None, elat=None, h0=None,
             ptr(s0 if minlat else None), float(deadline), ptr(code),
             ptr(overflow), _build.stream_of(nows))
     _build.check(rc, "state_walk")
-    state_walk.launches += 1
+    _build.counted(state_walk)
     return code, overflow[:nc]
 
 

@@ -1,0 +1,30 @@
+"""Model registry: ArchConfig.family -> model class.
+
+The dense family is ported; the others raise until their slice of the port
+(``ROADMAP.md``): the SSM family (Mamba-2, the SSD scan kernel) next, then
+the hybrid (Griffin), the MoE and VLM families and the audio encoder.
+"""
+
+from __future__ import annotations
+
+from repro_torch.modeling.lm import LM
+
+FAMILIES = {"dense": LM}
+LATER = {
+    "ssm": "the Mamba-2 slice (SSD scan kernel)",
+    "hybrid": "the Griffin slice (RG-LRU on the linear-scan kernel)",
+    "moe": "the MoE/VLM slice",
+    "vlm": "the MoE/VLM slice",
+    "audio": "the audio-encoder slice",
+}
+
+
+def build_model(cfg):
+    cls = FAMILIES.get(cfg.family)
+    if cls is not None:
+        return cls(cfg)
+    if cfg.family in LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
+            f"comes with {LATER[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r} for arch {cfg.name!r}")

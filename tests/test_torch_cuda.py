@@ -7,9 +7,12 @@ available (the CUDA kernels have no CPU mode). Imports torch, numpy and
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Float64 results must be bit-equal to the plain versions (the same rounded
-operations in the same order); float32 GBRT within 1e-4 and float32 linear
-scan within 5e-5 (the reference's own kernel tolerances). The replay-input
-helpers are shared with ``tests/test_torch_kernels.py``.
+operations in the same order); float32 GBRT within 1e-4, float32 linear
+scan and attention within 5e-5, bf16 attention within 3e-2 (the reference's
+own kernel tolerances). The attention kernels' CPU-side parity with the JAX
+package is in ``tests/test_torch_modeling.py``; here a small LM and a live
+executor run on the card, the decode step from its CUDA graph. The
+replay-input helpers are shared with ``tests/test_torch_kernels.py``.
 """
 
 from __future__ import annotations
@@ -180,3 +183,188 @@ def test_torch_serve_on_card_matches_cpu(cuda_device):
               "state_walk"):
         assert counts[k] > 0, k
     assert rt.stream_stats["residency"]["fallback_chunks"] == 0
+
+
+ATTN_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_card(cuda_device, rng, dtype):
+    """K4 against its plain version on the card: causal, windowed and
+    bidirectional, MQA/GQA/MHA, ragged key tiles, head dims 16 to 256."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    cases = [(1, 32, 32, 8, 64, True, 0), (2, 100, 4, 2, 64, True, 24),
+             (1, 96, 4, 4, 16, True, 0), (1, 256, 8, 1, 128, True, 40),
+             (2, 64, 4, 2, 32, False, 0), (1, 70, 2, 1, 256, True, 0),
+             (1, 50, 6, 3, 80, False, 17)]
+    for B, S, H, Hkv, D, causal, window in cases:
+        q = torch.as_tensor(rng.normal(size=(B, H, S, D)), dtype=dtype)
+        k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
+        v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        before = flash_attention_bhsd.launches
+        got = flash_attention_bhsd(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), causal=causal,
+                                   window=window)
+        torch.cuda.synchronize()
+        assert flash_attention_bhsd.launches == before + 1
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype], (B, S, H, Hkv, D, causal, window, err)
+        # the (B, S, H, D) layout through strided views
+        qs, ks, vs = (t.transpose(1, 2).contiguous().to(cuda_device)
+                      for t in (q, k, v))
+        got2 = flash_attention(qs, ks, vs, causal=causal, window=window)
+        assert torch.equal(got2.transpose(1, 2).cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_card(cuda_device, rng, dtype):
+    """K5 against its plain version on the card: ragged lengths, lengths
+    above S (every slot valid), a length of 0, several splits of the slot
+    axis and wide GQA groups."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    cases = [(1, 32, 32, 8, 64), (4, 4096, 32, 8, 64), (3, 200, 8, 2, 128),
+             (2, 600, 16, 1, 256), (2, 64, 12, 1, 80), (1, 33, 4, 4, 16)]
+    for B, S, H, Hkv, D in cases:
+        q = torch.as_tensor(rng.normal(size=(B, H, 1, D)), dtype=dtype)
+        k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
+        v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
+        lengths = rng.integers(1, S + 1, size=B)
+        lengths[0] = S + 3
+        if B > 2:
+            lengths[-1] = 0
+        lengths = torch.as_tensor(lengths, dtype=torch.int32)
+        want = decode_attention_plain(q, k, v, lengths)
+        got = decode_attention_bhd(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), lengths.to(cuda_device))
+        torch.cuda.synchronize()
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype], (B, S, H, Hkv, D, err)
+        if B > 2:
+            assert not got[-1].any(), "a length of 0 gives 0"
+        ks, vs = (t.transpose(1, 2).contiguous().to(cuda_device)
+                  for t in (k, v))
+        got2 = decode_attention(q.transpose(1, 2).to(cuda_device), ks, vs,
+                                lengths.to(cuda_device))
+        assert torch.equal(got2.transpose(1, 2).cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+def test_lm_and_executor_on_card(cuda_device):
+    """A small dense LM on the card against the same weights on the CPU
+    (float32: K4/K5 vs their plain versions, cuBLAS vs CPU matmuls), the
+    decode step replayed from its CUDA graph against the eager one (bf16,
+    bit-equal), and a live executor's cold and warm starts. The wrappers
+    count the eager launches alone; the graph tallies its replays."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import (
+        DecodeGraph,
+        make_compiled_steps,
+        replayed_launches,
+        reset_replayed_launches,
+    )
+    from repro_torch.serving.executors import LiveExecutor, SliceSpec
+
+    cfg = smoke_config("llama3.2-1b")
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        cfg, seed=0, device=cuda_device)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    toks = torch.arange(12, dtype=torch.int32)[None].repeat(2, 1) % cfg.vocab
+    lg, cg = model.prefill(params, {"tokens": toks.to(cuda_device)})
+    lc, cc = model.prefill(cpu, {"tokens": toks})
+    for step in range(4):  # past the 12-slot cache
+        tok = torch.tensor([step, 3 * step], dtype=torch.int32)
+        lg, cg = model.decode_step(params, cg, {"token": tok.to(cuda_device)})
+        lc, cc = model.decode_step(cpu, cc, {"token": tok})
+        assert (lg.cpu() - lc).abs().max().item() < 1e-4
+    bf = cfg.with_updates(dtype="bfloat16")
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        bf, seed=1, device=cuda_device)
+    _, cache = prefill_fn(params, {"tokens": toks.to(cuda_device)})
+    graph = DecodeGraph(decode_fn, params, cache)
+    assert graph.launches_per_replay == {"decode_attention": cfg.n_layers}
+    graph.load(cache)
+    eager = {k: v.clone() for k, v in cache.items()}
+    kernels.reset_launch_counts()
+    reset_replayed_launches()
+    for step in range(3):
+        graph.token.fill_(step)
+        got = graph.step().clone()
+        want, eager = decode_fn(params, eager, {"token": torch.full(
+            (2,), step, dtype=torch.int32, device=cuda_device)})
+        assert torch.equal(got, want)
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] == 3 * cfg.n_layers  # the eager steps
+    assert replayed_launches() == {"decode_attention": 3 * cfg.n_layers}
+    ex = LiveExecutor(SliceSpec("s2", 2, tokens_per_step=4), bf,
+                      device=cuda_device)
+    r1 = ex.execute(64, 16.0)
+    kernels.reset_launch_counts()
+    reset_replayed_launches()
+    r2 = ex.execute(64, 16.0)
+    assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["decode_attention"] == 0  # every decode step is a replay
+    # 64 / (2 x 4) steps
+    assert replayed_launches() == {"decode_attention": 8 * cfg.n_layers}
+
+
+@pytest.mark.cuda
+def test_live_serve_on_card(cuda_device):
+    """Calibrate-then-serve on the card with a small LM: the sequential
+    serve and the concurrent one (one dispatcher thread per target, cold
+    starts capturing decode graphs while other executors run). A capture
+    tallies only its own thread's launches, so every graph replays K5 alone,
+    whatever the other executors launched meanwhile."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.decision import MinLatencyPolicy
+    from repro_torch.serving import (
+        NetworkProfile,
+        SliceSpec,
+        calibrate_catalog,
+        llm_workload,
+        make_live_runtime,
+    )
+    from repro_torch.serving.engine import (
+        replayed_launches,
+        reset_replayed_launches,
+    )
+
+    cfg = smoke_config("llama3.2-1b").with_updates(dtype="bfloat16")
+    specs = [SliceSpec("s2", 2, tokens_per_step=4),
+             SliceSpec("s8", 8, tokens_per_step=4)]
+    cat = calibrate_catalog(cfg, specs, n_tasks=6, n_cold=1, seed=0,
+                            device=cuda_device)
+    policy = MinLatencyPolicy(c_max=0.01, alpha=0.05)
+    kernels.reset_launch_counts()
+    res = make_live_runtime(cat, policy, t_idl_ms=30_000.0,
+                            device=cuda_device).serve(
+        llm_workload(25, rate_per_s=40.0, seed=1, mean_tokens=128))
+    assert res.n == 25 and res.n_failed == 0
+    assert np.isfinite(res.avg_actual_latency_ms)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    rt = make_live_runtime(cat, policy, t_idl_ms=30_000.0, n_edge_devices=3,
+                           network=NetworkProfile(base_ms=2.0),
+                           device=cuda_device)
+    reset_replayed_launches()
+    res = rt.serve_async(llm_workload(24, rate_per_s=40.0, seed=2,
+                                      mean_tokens=128))
+    assert res.n == 24 and res.n_failed == 0
+    assert np.isfinite(res.avg_actual_latency_ms)
+    replayed = replayed_launches()
+    assert set(replayed) == {"decode_attention"}
+    assert replayed["decode_attention"] % cfg.n_layers == 0

@@ -4,9 +4,12 @@
   ``jax`` or the JAX package ``repro`` (an AST scan of every import);
 - ``import repro_torch`` (and every module of the slice) works without
   triton and without CUDA, and imports neither triton nor jax;
-- entry points raise without CUDA unless the caller passes ``device="cpu"``;
+- entry points (placement, model steps, executors, pools, calibration, the
+  live runtime and the serve CLI) raise without CUDA unless the caller
+  passes ``device="cpu"``;
 - a CPU tensor runs a kernel's plain version and leaves every launch
-  counter at 0.
+  counter at 0;
+- ``kernels.recording`` tallies the launches of the calling thread alone.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ast
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +64,11 @@ def test_import_needs_no_triton_and_no_cuda():
         "import repro_torch.kernels.gbrt_predict.ops\n"
         "import repro_torch.kernels.linear_scan.ops\n"
         "import repro_torch.kernels.state_replay.ref\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.configs, repro_torch.modeling.lm\n"
+        "import repro_torch.modeling.registry, repro_torch.modeling.convert\n"
+        "import repro_torch.serving, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'repro')]\n"
         "assert not bad, bad\n"
@@ -102,8 +111,53 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert repro_torch.DTYPE == torch.float64
 
 
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    """The model and serving entry points default to the card and raise
+    without one; ``device="cpu"`` is the only way onto the CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.decision import MinLatencyPolicy
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import (
+        LivePlacementServer,
+        SliceSpec,
+        calibrate_catalog,
+        make_compiled_steps,
+        make_live_runtime,
+        make_pool,
+    )
+    from repro_torch.serving.executors import LiveExecutor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config("llama3.2-1b").with_updates(
+        n_layers=1, d_model=16, d_ff=32, vocab=32, n_heads=2, n_kv_heads=1,
+        head_dim=8)
+    spec = SliceSpec("s2", 2)
+    policy = MinLatencyPolicy(c_max=0.01)
+    for call in (lambda: make_compiled_steps(cfg),
+                 lambda: LiveExecutor(spec, cfg),
+                 lambda: make_pool(cfg, [spec]),
+                 lambda: calibrate_catalog(cfg, [spec], n_tasks=2, n_cold=1),
+                 lambda: serve_cli.main(["--n", "2", "--chips", "2",
+                                         "--calib-tasks", "2"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cat = calibrate_catalog(cfg, [spec], n_tasks=2, n_cold=1, device="cpu")
+    for call in (lambda: make_live_runtime(cat, policy),
+                 lambda: LivePlacementServer(cat, policy)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    rt = make_live_runtime(cat, policy, device="cpu")
+    assert rt.engine.device == torch.device("cpu")
+    assert all(ex.device == torch.device("cpu")
+               for ex in rt.backend.pool.edges.values())
+
+
 def test_cpu_tensors_launch_no_kernel(rng):
     from repro_torch.core.gbrt import GBRT, GBRTConfig
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+    )
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.gbrt_predict.ops import (
         gbrt_predict,
         gbrt_predict_configs,
@@ -132,8 +186,73 @@ def test_cpu_tensors_launch_no_kernel(rng):
                elat=torch.ones((4, 1), dtype=torch.float64),
                h0=torch.zeros(1, dtype=torch.float64), lpw=True,
                minlat=False, deadline=1.0)
+    q = torch.ones((1, 2, 4, 8))
+    flash_attention_bhsd(q, q[:, :1], q[:, :1])
+    decode_attention_bhd(q[:, :, :1], q[:, :1], q[:, :1],
+                         torch.tensor([3], dtype=torch.int32))
     counts = kernels.launch_counts()
     assert set(counts) == {"gbrt_predict_multi", "gbrt_predict_blocked",
-                           "linear_scan", "state_replay", "state_walk"}
+                           "linear_scan", "state_replay", "state_walk",
+                           "flash_attention", "decode_attention"}
     assert set(counts.values()) == {0}
     assert np.isfinite(gbrt_predict(m, torch.as_tensor(x)).numpy()).all()
+
+
+def test_recording_sees_only_its_own_thread():
+    """A wrapper's count takes every thread's launches; a ``recording``
+    block tallies those of its own thread, as a graph capture in one
+    executor needs while another executor's thread launches kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+    )
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+
+    kernels.reset_launch_counts()
+    inside, done = threading.Event(), threading.Event()
+
+    def other_thread():
+        inside.wait()
+        for _ in range(3):
+            _build.counted(flash_attention_bhsd)
+        done.set()
+
+    t = threading.Thread(target=other_thread)
+    t.start()
+    with kernels.recording() as tally:
+        inside.set()
+        done.wait()
+        _build.counted(decode_attention_bhd)
+        _build.counted(decode_attention_bhd)
+        with pytest.raises(RuntimeError, match="nest"):
+            with kernels.recording():
+                pass
+    t.join()
+    assert tally == {"decode_attention": 2}
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] == 2 and counts["flash_attention"] == 3
+    _build.counted(decode_attention_bhd)  # outside the block: not tallied
+    assert tally == {"decode_attention": 2}
+    kernels.reset_launch_counts()
+
+
+def test_launch_counts_change_only_where_kernels_launch():
+    """A wrapper's ``launches`` is set to 0 or raised by one in
+    ``_build.counted``, nowhere else in the port (no code credits or takes
+    back launches it did not make), and each wrapper calls ``counted``."""
+    counted = set()
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.AugAssign) and \
+                    getattr(node.target, "attr", None) == "launches":
+                assert path.name == "_build.py", f"{path}:{node.lineno}"
+            elif isinstance(node, ast.Assign):
+                for t in node.targets:
+                    if getattr(t, "attr", None) == "launches":
+                        assert isinstance(node.value, ast.Constant) and \
+                            node.value.value == 0, f"{path}:{node.lineno}"
+            elif isinstance(node, ast.Call) and \
+                    getattr(node.func, "attr", None) == "counted":
+                counted.add(node.args[0].id)
+    assert counted == {fn.__name__ for fn in kernels.wrappers().values()}
