@@ -22,11 +22,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and
    flash decode (K5) at its decode shape (k/v (1, 8, 32, 64), length 33) and
    at B=4, S=4096 with ragged lengths and one length above S, within 5e-5 in
-   float32 and 3e-2 in bf16. Kernel, plain and library times come from CUDA
-   events (the plain CPU runs of walk and replay from the host clock); the
-   attention rows time each call from a CUDA graph of many calls (device
-   time, without the host's launch overhead, which ``eager_ms`` keeps), and
-   their library call is ``F.scaled_dot_product_attention``;
+   float32 and 3e-2 in bf16; the SSD scan (K6) in bf16 and float32 on the
+   inputs mamba2-780m's first layer gives it at full width, at the serving
+   prefill (x (1, 48, 32, 64), B/C (1, 32, 128), one chunk), at S=300 (3
+   chunks of 128, the last padded) and at b=2, S=4096 (32 chunks), y within
+   1e-4 in float32 and within 3e-2 of max(1, |y|) in bf16, the float32
+   state within 1e-4. Kernel, plain and library times come from CUDA events
+   (the plain CPU runs of walk and replay from the host clock); the
+   attention and SSD rows time each call from a CUDA graph of many calls
+   (device time, without the host's launch overhead, which ``eager_ms``
+   keeps); the attention rows' library call is
+   ``F.scaled_dot_product_attention``, and no single PyTorch call computes
+   the SSD scan;
 3. serve the placement stream — the STT app on 4 Lambda memory configs and a
    3-device edge fleet (speeds 1.0/1.0/0.6, least-predicted-wait balancer),
    262,144 bursty tasks in chunks of 65,536 — through
@@ -39,24 +46,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    which must be identical to the oracle. Every kernel's launch count is
    zeroed just before the run that drives it and read just after; each must
    be > 0, the fallback-chunk count 0, and the residency counters clean;
-4. build llama3.2-1b at full width (16 layers, d_model 2048, 1.5 B
-   parameters) on the card from a seeded generator, in float32, and a CPU
-   copy of the same weights; run a (1, 32) prefill and 8 teacher-forced
-   decode steps past the cache (through the reference's clamped write) on
-   both, and hold the card's logits (K4, K5, cuBLAS) to the CPU's (plain
-   versions) within ``FULL_WIDTH_TOL``; then, in bf16 as an executor serves
-   it, hold a decode step replayed from its CUDA graph to the eager step
-   (bit-equal) and time prefill and decode;
-5. serve live: calibrate the slice catalog of llama3.2-1b at full width
-   (slices of 2, 4 and 8 chips, 8 tasks, 1 cold start each) and serve 48
-   Poisson requests (20/s, 96 tokens on average) under
+4. build llama3.2-1b (16 layers, d_model 2048, 1.5 B parameters), then
+   mamba2-780m (48 layers, d_model 1536, 857 M parameters), at full width on
+   the card from a seeded generator, in float32, and a CPU copy of the same
+   weights; run a (1, 32) prefill and 8 teacher-forced decode steps (llama's
+   past its cache, through the reference's clamped write) on both, and hold
+   the card's logits and cache (K4, K5, K6, cuBLAS) to the CPU's (plain
+   versions) within ``FULL_WIDTH_TOL``; for mamba2-780m also a 300-token
+   prefill (3 chunks, the last padded) within ``SSM_LONG_TOL``; then, in
+   bf16 as an executor serves each model, hold a decode step replayed from
+   its CUDA graph to the eager step (bit-equal over 8 steps) and time
+   prefill and decode;
+5. serve live, for each of the two models: calibrate the slice catalog at
+   full width (slices of 2, 4 and 8 chips, 8 tasks, 1 cold start each) and
+   serve 48 Poisson requests (20/s, 96 tokens on average) under
    ``MinLatencyPolicy(c_max=0.004, alpha=0.02)`` through
    ``make_live_runtime(...).serve`` on the card. Every task must be served
-   and none fail, K4 and K5 (counts zeroed just before the serve, read just
-   after) must have launched, and the peak allocated memory must stay under
-   90% of the card;
+   and none fail or be shed, the peak allocated memory must stay under 90%
+   of the card, and the model's kernels (counts zeroed just before the
+   serve, read just after) must have launched: K4 and K5 for llama3.2-1b,
+   whose decode graphs replay K5 alone, ``n_layers`` launches per step; K6
+   for mamba2-780m, ``n_layers`` launches per prefill, whose decode graphs
+   replay no kernel of the port;
 6. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   line (K1-K6, walk and replay), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 A kernel's ``launches`` are its wrapper's count: the calls that launched it
 (or recorded it into a CUDA graph at a capture). The launches that decode
@@ -85,12 +99,26 @@ FLOAT_TOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 ATTN_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
-# card (K4, K5, cuBLAS in float32, TF32 off) vs CPU logits of the full-width
-# model in float32: summation order differs across 16 layers
+# K6 vs its plain version: float32 y within 1e-4; bf16 y within 3e-2 of
+# max(1, |y|) (an absolute bound up to |y| = 1, a relative one above: the
+# model's y reaches 27-52, where one bf16 ulp exceeds 3e-2); the float32
+# state within SSD_STATE_TOL
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+SSD_STATE_TOL = 1e-4
+# card (K4, K5, K6, cuBLAS in float32, TF32 off) vs CPU logits and caches of
+# the full-width models in float32: summation order differs across 16 / 48
+# layers. For the 300-token Mamba prefill the CPU's own chunked SSD lies
+# 1.9e-4 from the literal recurrence in y (tests/test_torch_ssm.py::
+# test_chunked_ssd_gap_at_full_width_head_shape), above 1e-4: there the
+# tolerance is that gap with a 2.6x margin.
 FULL_WIDTH_TOL = 1e-4
-ARCH = "llama3.2-1b"
-PROMPT_LEN, DECODE_STEPS = 32, 8
+SSM_LONG_TOL = 5e-4
+ARCH, SSM_ARCH = "llama3.2-1b", "mamba2-780m"
+PROMPT_LEN, DECODE_STEPS, SSM_LONG_PROMPT = 32, 8, 300
 LIVE_C_MAX, LIVE_ALPHA = 0.004, 0.02
+# the kernels each arch's live serve must launch
+LIVE_KERNELS = {ARCH: ("flash_attention", "decode_attention"),
+                SSM_ARCH: ("ssd_scan",)}
 
 DECISION_COLS = ("predicted_cold", "feasible")
 FLOAT_COLS = ("predicted_latency_ms", "predicted_cost", "allowed_cost")
@@ -138,13 +166,21 @@ def main() -> int:
     ctx = timed("stream", make_stream)
     rows = timed("kernels", phase_kernels, ctx, dev)
     rows += timed("attention", phase_attention, dev)
+    rows += timed("ssd", phase_ssd, dev)
     serve = timed("serve", phase_serve, ctx, dev)
-    timed("model", phase_model, dev)
-    live = timed("live", phase_live, dev)
-    launches = {**serve["launches"], **live["launches"]}
+    timed("model", phase_model, dev, ARCH)
+    timed("model ssm", phase_model, dev, SSM_ARCH, SSM_LONG_PROMPT)
+    lives = [timed("live", phase_live, dev, ARCH),
+             timed("live ssm", phase_live, dev, SSM_ARCH)]
+    launches = dict(serve["launches"])
+    replayed = {}
+    for live in lives:
+        launches.update(live["launches"])
+        for name, n in live["graph_replayed"].items():
+            replayed[name] = replayed.get(name, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
-        row["graph_replayed"] = live["graph_replayed"].get(row["name"], 0)
+        row["graph_replayed"] = replayed.get(row["name"], 0)
         if row["launches"] <= 0:
             fail(f"{row['name']} was never launched on its main path")
     log(f"build seconds: {json.dumps(build)}")
@@ -608,9 +644,131 @@ def phase_attention(dev) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------ phase 2, SSD scan
+def ssd_layer_inputs(dev, shapes) -> tuple[dict, int]:
+    """K6's inputs as mamba2-780m's first layer gives them at full width:
+    the layer's weights from a seeded generator on the card, token
+    embeddings drawn N(0, 1) as the embedding table is; the model's layout
+    (x (b, S, 48, 64), dt (b, S, 48), B/C slices of the conv output), for
+    each (b, S) of ``shapes``. Returns them and the config's chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.layers import rms_norm
+    from repro_torch.modeling.mamba import MambaLM
+    from repro_torch.modeling.module import init_params
+    from repro_torch.modeling.rglru import causal_conv1d
+    from repro_torch.modeling.ssd import softplus, ssd_dims
+
+    cfg = get_config(SSM_ARCH).with_updates(n_layers=1, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    specs = {k: v for k, v in MambaLM(cfg).param_specs().items()
+             if k.startswith("layers/")}
+    p = {k[len("layers/"):]: v[0]
+         for k, v in init_params(gen, specs, device=dev).items()}
+    d_inner, nh, hd, ds = ssd_dims(cfg)
+    out = {}
+    for b, S in shapes:
+        h = rms_norm(torch.randn((b, S, cfg.d_model), generator=gen,
+                                 device=dev), p["ln/scale"])
+        z = h @ p["mixer/in_proj"]
+        xbc = F.silu(causal_conv1d(z[..., d_inner:2 * d_inner + 2 * ds],
+                                   p["mixer/conv/w"], p["mixer/conv/b"]))
+        out[(b, S)] = (xbc[..., :d_inner].reshape(b, S, nh, hd),
+                       softplus(z[..., 2 * d_inner + 2 * ds:]
+                                + p["mixer/dt_bias"]),
+                       -torch.exp(p["mixer/a_log"]),
+                       xbc[..., d_inner:d_inner + ds], xbc[..., d_inner + ds:])
+    return out, cfg.ssm_chunk
+
+
+def ssd_case(args, dtype, chunk, reps) -> dict:
+    """K6 vs its plain version at one shape, called as ``ops.ssd`` calls it
+    (strided views of the model's tensors in, a transposed view out)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_plain,
+    )
+
+    xs, dt, A, B, C = args
+    x, B, C = xs.to(dtype).transpose(1, 2), B.to(dtype), C.to(dtype)
+    dtt = dt.transpose(1, 2)
+    out = torch.empty(xs.shape, dtype=dtype, device=xs.device).transpose(1, 2)
+    y, st = ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk, out=out)
+    yp, sp = ssd_scan_plain(x, dtt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    err = max_err(y, yp)
+    y_rel = float(((y.double() - yp.double()).abs()
+                   / yp.double().abs().clamp_min(1.0)).max())
+    s_err = max_err(st, sp)
+    b, H, S, hd = x.shape
+    if (y_rel if dtype == torch.bfloat16 else err) > SSD_TOL[name] \
+            or s_err > SSD_STATE_TOL:
+        fail(f"K6 b={b} S={S} {name} differs from its plain version: y "
+             f"{err} ({y_rel} of max(1, |y|)), state {s_err}")
+    ds, Q = B.shape[-1], min(chunk, S)
+    ops = 0.0
+    for r0 in range(0, S, Q):
+        qc = min(Q, S - r0)
+        tri = qc * (qc + 1) / 2              # the (q, s <= q) pairs
+        ops += b * 2 * tri * ds               # C B^T, shared by the heads
+        ops += b * H * (2 * tri * hd + 2 * qc * hd * ds)  # scores x, state
+        if r0:                                # the carried state's part of y
+            ops += b * H * 2 * qc * hd * ds
+    kernel = lambda: ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk,  # noqa: E731
+                                   out=out)
+    return dict(
+        ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
+        plain_ms=graph_ms(lambda: ssd_scan_plain(x, dtt, A, B, C, chunk=chunk),
+                          max(reps // 10, 2)),
+        err=err, y_rel_err=y_rel, state_err=s_err,
+        y_max=float(yp.float().abs().max()),
+        nbytes=x.element_size() * (2 * x.numel() + B.numel() + C.numel())
+        + 4 * (dt.numel() + A.numel() + st.numel()), ops=ops)
+
+
+def phase_ssd(dev) -> list[dict]:
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    inputs, chunk = ssd_layer_inputs(
+        dev, ((1, PROMPT_LEN), (1, SSM_LONG_PROMPT), (2, 4096)))
+    # the serving prefill: x (1, 48, 32, 64), B/C (1, 32, 128), one chunk
+    path = ssd_case(inputs[(1, PROMPT_LEN)], bf16, chunk, 200)
+    cases = {"f32": ssd_case(inputs[(1, PROMPT_LEN)], f32, chunk, 200),
+             "s300": ssd_case(inputs[(1, SSM_LONG_PROMPT)], bf16, chunk, 50),
+             "s300_f32": ssd_case(inputs[(1, SSM_LONG_PROMPT)], f32, chunk,
+                                  50),
+             "b2_s4096": ssd_case(inputs[(2, 4096)], bf16, chunk, 5),
+             "b2_s4096_f32": ssd_case(inputs[(2, 4096)], f32, chunk, 5)}
+    extra = {f"{tag}_{key}": c[key] for tag, c in cases.items()
+             for key in ("ms", "plain_ms", "err", "y_rel_err", "state_err")}
+    extra["eager_ms"] = path["eager_ms"]
+    for tag in ("s300", "b2_s4096"):
+        b_ms, b_by = bound(cases[tag]["nbytes"], cases[tag]["ops"], "float32")
+        extra[f"{tag}_bound_ms"], extra[f"{tag}_bound_by"] = b_ms, b_by
+    return [row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                "src/repro/kernels/ssd_scan/kernel.py:87", path["ms"],
+                path["plain_ms"], path["err"], path["nbytes"], path["ops"],
+                "float32", y_rel_err=path["y_rel_err"],
+                state_err=path["state_err"], y_max=path["y_max"],
+                shape="x (1, 48, 32, 64) B/C (1, 32, 128) bf16, one chunk of "
+                      "32; s300: S=300, 3 chunks of 128 (the last padded); "
+                      "b2_s4096: b=2, S=4096, 32 chunks; inputs from "
+                      "mamba2-780m's first layer at full width",
+                rate="float32 (the kernel widens its inputs)", **extra)]
+
+
 # ------------------------------------------------------------------ phase 4
-def phase_model(dev) -> None:
-    """llama3.2-1b at full width: card vs CPU logits in float32, then the
+def phase_model(dev, arch, long_prompt=0) -> None:
+    """``arch`` at full width: card vs CPU logits and caches in float32 over
+    a (1, 32) prefill and 8 teacher-forced decode steps (and, when
+    ``long_prompt`` is set, a prefill of that many tokens), then the
     CUDA-graph decode step vs the eager one in bf16."""
     import numpy as np
     import torch
@@ -619,10 +777,11 @@ def phase_model(dev) -> None:
     from repro_torch.modeling.registry import build_model
     from repro_torch.serving.engine import DecodeGraph, make_compiled_steps
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32)
     forced = rng.integers(0, cfg.vocab, size=DECODE_STEPS).astype(np.int32)
+    longp = rng.integers(0, cfg.vocab, size=(1, long_prompt)).astype(np.int32)
 
     t0 = time.perf_counter()
     cfg32 = cfg.with_updates(dtype="float32")
@@ -632,34 +791,53 @@ def phase_model(dev) -> None:
     params = model.init(gen, device=dev)
     cpu_params = {k: v.cpu() for k, v in params.items()}
     n_params = sum(v.numel() for v in params.values())
-    errs = []
     runs = {}
     for where, p in (("cuda", params), ("cpu", cpu_params)):
         d = dev if where == "cuda" else torch.device("cpu")
         logits, cache = model.prefill(
             p, {"tokens": torch.as_tensor(prompt, device=d)})
         out = [logits.cpu()]
-        for t in forced:  # teacher-forced, past the 32-slot cache
+        for t in forced:  # teacher-forced (the dense cache: past its slots)
             logits, cache = model.decode_step(
                 p, cache, {"token": torch.tensor([t], dtype=torch.int32,
                                                  device=d)})
             out.append(logits.cpu())
-        runs[where] = (out, {k: v.cpu() for k, v in cache.items()})
+        long_run = None
+        if long_prompt:
+            logits, lc = model.prefill(
+                p, {"tokens": torch.as_tensor(longp, device=d)})
+            long_run = (logits.cpu(), {k: v.cpu() for k, v in lc.items()})
+        runs[where] = (out, {k: v.cpu() for k, v in cache.items()}, long_run)
+    keys = [k for k in runs["cpu"][1] if k != "pos"]
+    errs = []
     for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
         if not torch.isfinite(a).all():
-            fail("full-width logits on the card are not finite")
+            fail(f"{arch} full-width logits on the card are not finite")
         errs.append(max_err(a, b))
     cache_err = max(max_err(runs["cuda"][1][k], runs["cpu"][1][k])
-                    for k in ("k", "v"))
+                    for k in keys)
     if int(runs["cuda"][1]["pos"]) != PROMPT_LEN + DECODE_STEPS:
         fail("the decode position did not advance once per step")
     scale = max(float(runs["cpu"][0][0].abs().max()), 1.0)
-    log(f"[model] {ARCH} full width, {n_params:,} parameters, float32: card "
+    log(f"[model] {arch} full width, {n_params:,} parameters, float32: card "
         f"vs CPU max abs logit error per step {json.dumps(errs)} (logits up "
-        f"to {scale:.2f}), cache error {cache_err:.3g}, tolerance "
-        f"{FULL_WIDTH_TOL} ({time.perf_counter() - t0:.1f} s)")
+        f"to {scale:.2f}), cache ({', '.join(keys)}) error {cache_err:.3g}, "
+        f"tolerance {FULL_WIDTH_TOL} ({time.perf_counter() - t0:.1f} s)")
     if max(errs) > FULL_WIDTH_TOL or cache_err > FULL_WIDTH_TOL:
-        fail(f"full-width card logits differ from the CPU's by {max(errs)}")
+        fail(f"{arch} full-width card logits or cache differ from the CPU's "
+             f"by {max(errs)} / {cache_err}")
+    if long_prompt:
+        (la, ca), (lb, cb) = runs["cuda"][2], runs["cpu"][2]
+        long_err = max_err(la, lb)
+        long_cache = max(max_err(ca[k], cb[k]) for k in keys)
+        log(f"[model] {arch} {long_prompt}-token prefill, float32: card vs "
+            f"CPU max abs logit error {long_err:.3g} (logits up to "
+            f"{float(lb.abs().max()):.2f}), cache error {long_cache:.3g}, "
+            f"tolerance {SSM_LONG_TOL}")
+        if not torch.isfinite(la).all() or long_err > SSM_LONG_TOL \
+                or long_cache > SSM_LONG_TOL:
+            fail(f"{arch} {long_prompt}-token prefill on the card differs "
+                 f"from the CPU's by {long_err} / {long_cache}")
     del params, cpu_params, runs
     torch.cuda.empty_cache()
 
@@ -688,24 +866,25 @@ def phase_model(dev) -> None:
             [t], dtype=torch.int32, device=dev)})
         equal &= torch.equal(g, e)
         diffs.append(max_err(g, e))
-    equal &= all(torch.equal(graph.cache[k], eager[k]) for k in ("k", "v"))
+    equal &= all(torch.equal(graph.cache[k], eager[k]) for k in eager)
     if not equal:
-        fail(f"graph decode differs from the eager step: {diffs}")
+        fail(f"{arch} graph decode differs from the eager step: {diffs}")
     eager_ms = cuda_ms(lambda: decode_fn(params, eager, {"token": tok}), 20)
     step_ms = cuda_ms(graph.step, 50)
     prefill_ms = cuda_ms(lambda: prefill_fn(params, {"tokens": toks}), 20)
     mem = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[model] bf16 serving weights: set-up {build_s:.2f} s, graph capture "
-        f"{capture_s:.2f} s; graph decode bit-equal to eager over "
-        f"{DECODE_STEPS} steps ({equal}); prefill {prefill_ms:.3f} ms, decode "
-        f"step {step_ms:.3f} ms from the graph, {eager_ms:.3f} ms eager; "
-        f"peak allocated {mem:.1f} GiB")
+    log(f"[model] {arch} bf16 serving weights: set-up {build_s:.2f} s, graph "
+        f"capture {capture_s:.2f} s (kernels per replay "
+        f"{json.dumps(graph.launches_per_replay)}); graph decode bit-equal "
+        f"to eager over {DECODE_STEPS} steps ({equal}); prefill "
+        f"{prefill_ms:.3f} ms, decode step {step_ms:.3f} ms from the graph, "
+        f"{eager_ms:.3f} ms eager; peak allocated {mem:.1f} GiB")
     del params, graph, cache, c2, eager
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 5
-def phase_live(dev) -> dict:
+def phase_live(dev, arch) -> dict:
     import numpy as np
     import torch
 
@@ -723,16 +902,18 @@ def phase_live(dev) -> dict:
         reset_replayed_launches,
     )
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     specs = [SliceSpec("slice2", 2), SliceSpec("slice4", 4),
              SliceSpec("slice8", 8)]
     cat = calibrate_catalog(cfg, specs, n_tasks=8, n_cold=1, device=dev)
     calib_s = time.perf_counter() - t0
-    log(f"[live] calibrated {len(specs)} slices of {ARCH} in {calib_s:.1f} s: "
-        f"cold start {cat.start_cold.mean:.1f} +- {cat.start_cold.std:.1f} ms, "
-        f"warm start {cat.start_warm.mean:.3f} ms")
+    log(f"[live] calibrated {len(specs)} slices of {arch} in {calib_s:.1f} "
+        f"s: cold start {cat.start_cold.mean:.1f} +- "
+        f"{cat.start_cold.std:.1f} ms, warm start "
+        f"{cat.start_warm.mean:.3f} ms")
     rt = make_live_runtime(cat, MinLatencyPolicy(c_max=LIVE_C_MAX,
                                                  alpha=LIVE_ALPHA), device=dev)
     tasks = llm_workload(48, rate_per_s=20.0, seed=1, mean_tokens=96.0)
@@ -750,8 +931,8 @@ def phase_live(dev) -> dict:
     hist = {}
     for target in res.records.targets:
         hist[target] = hist.get(target, 0) + 1
-    log(f"[live] served {res.n} tasks in {serve_s:.1f} s: avg actual latency "
-        f"{res.avg_actual_latency_ms:.2f} ms, p95 "
+    log(f"[live] {arch}: served {res.n} tasks in {serve_s:.1f} s: avg actual "
+        f"latency {res.avg_actual_latency_ms:.2f} ms, p95 "
         f"{res.p95_actual_latency_ms:.2f} ms, latency_error_pct "
         f"{res.latency_error_pct:.2f}, cost {res.total_actual_cost:.6f}, "
         f"placements {json.dumps(dict(sorted(hist.items())))}, cold starts "
@@ -761,22 +942,28 @@ def phase_live(dev) -> dict:
         f"launches {json.dumps(counts)}, replayed from decode graphs "
         f"{json.dumps(replayed)}")
     if res.n != len(tasks) or res.n_failed or res.n_shed:
-        fail(f"live serve: {res.n} of {len(tasks)} served, {res.n_failed} "
-             f"failed, {res.n_shed} shed")
+        fail(f"{arch} live serve: {res.n} of {len(tasks)} served, "
+             f"{res.n_failed} failed, {res.n_shed} shed")
     if not np.isfinite(res.avg_actual_latency_ms):
-        fail("live serve latency is not finite")
+        fail(f"{arch} live serve latency is not finite")
     if peak >= 0.9 * total:
-        fail(f"live serve peak memory {peak / 2**30:.1f} GiB is over 90% of "
-             "the card")
-    for k in ("flash_attention", "decode_attention"):
+        fail(f"{arch} live serve peak memory {peak / 2**30:.1f} GiB is over "
+             "90% of the card")
+    for k in LIVE_KERNELS[arch]:
         if counts[k] <= 0:
-            fail(f"{k} was not launched by the live serve")
-    if set(replayed) != {"decode_attention"} \
+            fail(f"{k} was not launched by the {arch} live serve")
+    if cfg.family == "ssm":
+        # K6 runs in every prefill, once per layer; a decode step holds no
+        # kernel of the port, so the graphs replay none
+        if counts["ssd_scan"] % cfg.n_layers or replayed:
+            fail(f"{arch}: ssd_scan launched {counts['ssd_scan']} times (not "
+                 f"{cfg.n_layers} per prefill) or decode graphs replayed "
+                 f"{replayed}")
+    elif set(replayed) != {"decode_attention"} \
             or replayed["decode_attention"] % cfg.n_layers:
         fail(f"decode graphs replayed {replayed}, not {cfg.n_layers} "
              "decode_attention launches per step")
-    return {"launches": {k: counts[k] for k in
-                         ("flash_attention", "decode_attention")},
+    return {"launches": {k: counts[k] for k in LIVE_KERNELS[arch]},
             "graph_replayed": replayed}
 
 

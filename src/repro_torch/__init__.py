@@ -3,9 +3,9 @@
 The package mirrors ``repro`` (the JAX reference): ``core/`` holds the
 placement system — models, Predictor, Decision Engine, the AWS twin, the
 serve loop and the torch placement core; ``configs/``, ``modeling/`` and
-``serving/`` the dense LM and the live prototype that serves it (executors,
-calibration, the live runtime; ``launch/serve.py`` is its CLI); and
-``kernels/`` the hand-written CUDA kernels for Hopper (sources in
+``serving/`` the dense and Mamba-2 LMs and the live prototype that serves
+them (executors, calibration, the live runtime; ``launch/serve.py`` is its
+CLI); and ``kernels/`` the hand-written CUDA kernels for Hopper (sources in
 ``csrc/``) with their plain PyTorch versions.
 
 Device policy: every entry point runs on the CUDA card. ``resolve_device``

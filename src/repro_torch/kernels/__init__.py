@@ -31,6 +31,7 @@ def wrappers() -> dict:
         gbrt_predict_multi,
     )
     from repro_torch.kernels.linear_scan.kernel import linear_scan_bsd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhsd
     from repro_torch.kernels.state_replay.kernel import (
         state_replay,
         state_walk,
@@ -42,7 +43,8 @@ def wrappers() -> dict:
             "state_replay": state_replay,
             "state_walk": state_walk,
             "flash_attention": flash_attention_bhsd,
-            "decode_attention": decode_attention_bhd}
+            "decode_attention": decode_attention_bhd,
+            "ssd_scan": ssd_scan_bhsd}
 
 
 def launch_counts() -> dict[str, int]:

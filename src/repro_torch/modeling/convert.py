@@ -1,6 +1,8 @@
 """Parameters across packages: the JAX package's flat LM param dict, as
 numpy arrays, becomes the port's parameter dict, so that both packages
-compute the same model (the tests carry the JAX params over this way)."""
+compute the same model (the tests carry the JAX params over this way). It
+goes through ``build_model(cfg).param_specs()``, so it covers every family
+the port has: the dense ``LM`` and the SSM family's ``MambaLM``."""
 
 from __future__ import annotations
 

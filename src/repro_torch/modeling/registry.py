@@ -1,17 +1,17 @@
 """Model registry: ArchConfig.family -> model class.
 
-The dense family is ported; the others raise until their slice of the port
-(``ROADMAP.md``): the SSM family (Mamba-2, the SSD scan kernel) next, then
-the hybrid (Griffin), the MoE and VLM families and the audio encoder.
+The dense and SSM (Mamba-2) families are ported; the others raise until
+their slice of the port (``ROADMAP.md``): the hybrid (Griffin), the MoE and
+VLM families and the audio encoder.
 """
 
 from __future__ import annotations
 
 from repro_torch.modeling.lm import LM
+from repro_torch.modeling.mamba import MambaLM
 
-FAMILIES = {"dense": LM}
+FAMILIES = {"dense": LM, "ssm": MambaLM}
 LATER = {
-    "ssm": "the Mamba-2 slice (SSD scan kernel)",
     "hybrid": "the Griffin slice (RG-LRU on the linear-scan kernel)",
     "moe": "the MoE/VLM slice",
     "vlm": "the MoE/VLM slice",

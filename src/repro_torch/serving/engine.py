@@ -6,7 +6,8 @@ The port of ``repro.serving.engine``. ``make_prefill_step`` /
     prefill_step(params, batch)        -> (logits (B, V) float32, cache)
     decode_step(params, cache, batch)  -> (logits (B, V) float32, cache)
 
-(the decode step writes into ``cache`` in place, see ``modeling/lm.py``).
+(the decode step updates ``cache`` in place, see ``modeling/lm.py`` and
+``modeling/mamba.py``).
 ``make_compiled_steps`` is the executor-facing entry: model, parameters drawn
 on the executor's device from its seed, and the two steps in one call. Where
 the reference compiles the steps with ``jax.jit``, an executor on the card
@@ -44,11 +45,12 @@ def make_compiled_steps(model_cfg, seed: int = 0, device=None,
 
     ``device=None`` means the CUDA card (raises without one); pass
     ``device="cpu"`` for the CPU. Parameters are drawn from a generator on
-    that device seeded with ``seed``. Each matrix is cast to ``cfg.dtype``
-    as soon as it is drawn and its float32 master is dropped (norm scales
-    stay float32): the cast the model would make at every use, made once,
-    so the numbers are the same and the resident weights take half the
-    memory in bf16."""
+    that device seeded with ``seed``. Each parameter goes through the
+    model's ``serving_cast`` as soon as it is drawn, and its float32 master
+    is dropped: a parameter the model uses in ``cfg.dtype`` is cast to it
+    (the cast the model would make at every use, made once, so the numbers
+    are the same and the resident weights take half the memory in bf16),
+    one it uses in float32 stays float32."""
     device = resolve_device(device)
     model = build_model(model_cfg)
     gen = torch.Generator(device=device)
@@ -75,11 +77,13 @@ def make_decode_step(model):
 class DecodeGraph:
     """A decode step captured in a CUDA graph over static buffers.
 
-    ``cache`` (a prefill's output) fixes the shapes and the device. The graph
-    reads the token from ``token`` and the position from the static cache's
-    ``pos`` tensor; it writes the token's K/V at the clamped slot, advances
-    ``pos`` and leaves the logits in ``logits``, all on the device. ``load``
-    copies a fresh cache in before a run of ``step`` calls.
+    ``cache`` (a prefill's output, of any family) fixes the shapes and the
+    device. The graph reads the token from ``token`` and the position from
+    the static cache's ``pos`` tensor; it updates the cache in place (the
+    dense family writes the token's K/V at the clamped slot, the SSM family
+    its states and conv windows), advances ``pos`` and leaves the logits in
+    ``logits``, all on the device. ``load`` copies a fresh cache in before a
+    run of ``step`` calls.
 
     The wrappers' launch counts (``repro_torch.kernels``) count the kernels
     that the warm-up and the capture launch, and no replay. The graphs keep
@@ -92,9 +96,10 @@ class DecodeGraph:
 
         self.params = params  # the graph reads them: keep them alive
         self.cache = {k: v.clone() for k, v in cache.items()}
-        batch = cache["k"].shape[1]
-        self.token = torch.zeros(batch, dtype=torch.int32,
-                                 device=cache["k"].device)
+        # every family's cache entries but "pos" are (layers, batch, ...)
+        ref = next(v for k, v in cache.items() if k != "pos")
+        self.token = torch.zeros(ref.shape[1], dtype=torch.int32,
+                                 device=ref.device)
         with _CAPTURE_LOCK:
             side = torch.cuda.Stream(device=self.token.device)
             side.wait_stream(torch.cuda.current_stream())

@@ -9,10 +9,12 @@ available (the CUDA kernels have no CPU mode). Imports torch, numpy and
 Float64 results must be bit-equal to the plain versions (the same rounded
 operations in the same order); float32 GBRT within 1e-4, float32 linear
 scan and attention within 5e-5, bf16 attention within 3e-2 (the reference's
-own kernel tolerances). The attention kernels' CPU-side parity with the JAX
-package is in ``tests/test_torch_modeling.py``; here a small LM and a live
-executor run on the card, the decode step from its CUDA graph. The
-replay-input helpers are shared with ``tests/test_torch_kernels.py``.
+own kernel tolerances); the SSD scan's y within 1e-4 in float32 and within
+3e-2 of max(1, |y|) in bf16, its float32 state within 1e-4. The kernels'
+CPU-side parity with the JAX package is in ``tests/test_torch_modeling.py``
+and ``tests/test_torch_ssm.py``; here a small dense LM, a small Mamba-2 LM
+and live executors run on the card, the decode step from its CUDA graph.
+The replay-input helpers are shared with ``tests/test_torch_kernels.py``.
 """
 
 from __future__ import annotations
@@ -368,3 +370,130 @@ def test_live_serve_on_card(cuda_device):
     replayed = replayed_launches()
     assert set(replayed) == {"decode_attention"}
     assert replayed["decode_attention"] % cfg.n_layers == 0
+
+
+def ssd_inputs(rng, b, H, S, hd, ds, dtype):
+    """Kernel-layout SSD inputs drawn as ``tests/test_kernels.py`` draws
+    them, with B and C scaled by ds ** -0.5 so that C B^T has unit variance
+    at any state width (the model's normalised projections are of that
+    order)."""
+    x = torch.as_tensor(rng.normal(size=(b, H, S, hd)), dtype=dtype)
+    dt = torch.as_tensor(np.abs(rng.normal(size=(b, H, S))) * 0.5,
+                         dtype=torch.float32)
+    A = torch.as_tensor(-np.abs(rng.normal(size=H)) - 0.1,
+                        dtype=torch.float32)
+    B, C = (torch.as_tensor(rng.normal(size=(b, S, ds)) * ds ** -0.5,
+                            dtype=dtype) for _ in range(2))
+    return x, dt, A, B, C
+
+
+def ssd_err(got, want) -> float:
+    """Largest |got - want| / max(1, |want|): an absolute error up to 1, a
+    relative one above (one bf16 ulp above |y| = 4 exceeds 3e-2)."""
+    g, w = got.cpu().double(), want.cpu().double()
+    return float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+
+
+def max_abs(a, b) -> float:
+    return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_on_card(cuda_device, rng, dtype):
+    """K6 against its plain version on the card: the smoke head shape (hd 8,
+    ds 16, chunks of 8), mamba2-780m's head shape at the serving prompt (one
+    chunk of 32), padded multi-chunk and non-power-of-two chunks, ragged
+    head-dim slices; y within 1e-4 in float32 and within 3e-2 of
+    max(1, |y|) in bf16, the float32 state within 1e-4. The model layout
+    through strided views is bit-equal to the kernel layout."""
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_plain,
+    )
+    from repro_torch.kernels.ssd_scan.ops import ssd
+
+    cases = [(2, 16, 20, 8, 16, 8), (1, 48, 32, 64, 128, 128),
+             (1, 48, 300, 64, 128, 128), (2, 4, 100, 64, 128, 128),
+             (1, 3, 77, 40, 24, 16), (3, 2, 9, 16, 200, 64)]
+    for b, H, S, hd, ds, chunk in cases:
+        args = ssd_inputs(rng, b, H, S, hd, ds, dtype)
+        dev_args = [t.to(cuda_device) for t in args]
+        want_y, want_s = ssd_scan_plain(*dev_args, chunk=chunk)
+        before = ssd_scan_bhsd.launches
+        y, s = ssd_scan_bhsd(*dev_args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_scan_bhsd.launches == before + 1
+        assert y.dtype == dtype and s.dtype == torch.float32
+        case = (b, H, S, hd, ds, chunk)
+        y_err = ssd_err(y, want_y) if dtype == torch.bfloat16 \
+            else max_abs(y, want_y)
+        assert y_err <= SSD_TOL[dtype], (case, y_err)
+        assert max_abs(s, want_s) <= 1e-4, (case, max_abs(s, want_s))
+        x, dt, A, B, C = dev_args
+        ys, ss = ssd(x.transpose(1, 2).contiguous(),
+                     dt.transpose(1, 2).contiguous(), A, B, C, chunk=chunk)
+        assert torch.equal(ys.transpose(1, 2), y) and torch.equal(ss, s)
+
+
+@pytest.mark.cuda
+def test_mamba_lm_and_executor_on_card(cuda_device):
+    """The smoke Mamba-2 LM on the card against the same weights on the CPU
+    (float32: K6 vs its plain version, cuBLAS vs CPU matmuls) over a
+    multi-chunk prefill and 4 decode steps; the decode step replayed from
+    its CUDA graph against the eager one (bf16, bit-equal; the graph holds
+    no kernel of the port, so it tallies no replayed launch); a live
+    executor's cold and warm starts, one K6 launch per layer per prefill."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import (
+        DecodeGraph,
+        make_compiled_steps,
+        replayed_launches,
+        reset_replayed_launches,
+    )
+    from repro_torch.serving.executors import LiveExecutor, SliceSpec
+
+    cfg = smoke_config("mamba2-780m")
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        cfg, seed=0, device=cuda_device)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    toks = torch.arange(21, dtype=torch.int32)[None].repeat(2, 1) % cfg.vocab
+    kernels.reset_launch_counts()
+    lg, cg = model.prefill(params, {"tokens": toks.to(cuda_device)})
+    assert kernels.launch_counts()["ssd_scan"] == cfg.n_layers
+    lc, cc = model.prefill(cpu, {"tokens": toks})
+    assert max_abs(lg, lc) < 1e-4
+    for step in range(4):
+        tok = torch.tensor([step, 3 * step], dtype=torch.int32)
+        lg, cg = model.decode_step(params, cg, {"token": tok.to(cuda_device)})
+        lc, cc = model.decode_step(cpu, cc, {"token": tok})
+        assert max_abs(lg, lc) < 1e-4
+    for key in ("state", "conv"):
+        assert max_abs(cg[key], cc[key]) < 1e-4, key
+    bf = cfg.with_updates(dtype="bfloat16")
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        bf, seed=1, device=cuda_device)
+    _, cache = prefill_fn(params, {"tokens": toks.to(cuda_device)})
+    graph = DecodeGraph(decode_fn, params, cache)
+    assert graph.launches_per_replay == {}
+    graph.load(cache)
+    eager = {k: v.clone() for k, v in cache.items()}
+    reset_replayed_launches()
+    for step in range(3):
+        graph.token.fill_(step)
+        got = graph.step().clone()
+        want, eager = decode_fn(params, eager, {"token": torch.full(
+            (2,), step, dtype=torch.int32, device=cuda_device)})
+        assert torch.equal(got, want)
+    assert all(torch.equal(graph.cache[k], eager[k]) for k in eager)
+    assert replayed_launches() == {}
+    ex = LiveExecutor(SliceSpec("s2", 2, tokens_per_step=4), bf,
+                      device=cuda_device)
+    r1 = ex.execute(64, 16.0)
+    kernels.reset_launch_counts()
+    r2 = ex.execute(64, 16.0)
+    assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
+    assert kernels.launch_counts()["ssd_scan"] == cfg.n_layers

@@ -66,7 +66,9 @@ def test_import_needs_no_triton_and_no_cuda():
         "import repro_torch.kernels.state_replay.ref\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.configs, repro_torch.modeling.lm\n"
+        "import repro_torch.modeling.mamba, repro_torch.modeling.ssd\n"
         "import repro_torch.modeling.registry, repro_torch.modeling.convert\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -163,6 +165,7 @@ def test_cpu_tensors_launch_no_kernel(rng):
         gbrt_predict_configs,
     )
     from repro_torch.kernels.linear_scan.ops import linear_scan, prefix_sum
+    from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.kernels.state_replay.kernel import (
         state_replay,
         state_walk,
@@ -190,10 +193,12 @@ def test_cpu_tensors_launch_no_kernel(rng):
     flash_attention_bhsd(q, q[:, :1], q[:, :1])
     decode_attention_bhd(q[:, :, :1], q[:, :1], q[:, :1],
                          torch.tensor([3], dtype=torch.int32))
+    ssd(torch.ones((1, 6, 2, 4)), torch.ones((1, 6, 2)), -torch.ones(2),
+        torch.ones((1, 6, 3)), torch.ones((1, 6, 3)), chunk=4)
     counts = kernels.launch_counts()
     assert set(counts) == {"gbrt_predict_multi", "gbrt_predict_blocked",
                            "linear_scan", "state_replay", "state_walk",
-                           "flash_attention", "decode_attention"}
+                           "flash_attention", "decode_attention", "ssd_scan"}
     assert set(counts.values()) == {0}
     assert np.isfinite(gbrt_predict(m, torch.as_tensor(x)).numpy()).all()
 

@@ -285,3 +285,40 @@ def test_live_placement_server_end_to_end(tiny_catalog):
     assert 0.05 < ratio < 20.0, res.latency_error_pct
     assert srv.engine.device == torch.device("cpu")
     assert srv.pool.peak_resident >= 1
+
+
+# ----------------------------------------------- the SSM family (Mamba-2)
+def test_mamba_live_calibrate_then_serve():
+    """Calibrate, then serve the smoke Mamba-2 LM live on the CPU: the
+    executors build it through the registry, prefill through the SSD scan's
+    plain version (no launches) and decode its O(1) state eagerly."""
+    cfg = smoke_config("mamba2-780m")
+    specs = [SliceSpec("s2", 2, tokens_per_step=4),
+             SliceSpec("s8", 8, tokens_per_step=4)]
+    cat = calibrate_catalog(cfg, specs, n_tasks=6, n_cold=1, seed=0,
+                            device=CPU)
+    assert cat.start_cold.mean > cat.start_warm.mean
+    kernels.reset_launch_counts()
+    rt = make_live_runtime(cat, MinLatencyPolicy(c_max=0.01, alpha=0.05),
+                           t_idl_ms=30_000.0, device=CPU)
+    res = rt.serve(llm_workload(20, rate_per_s=40.0, seed=1,
+                                mean_tokens=128))
+    assert res.n == 20 and res.n_failed == 0 and res.n_shed == 0
+    assert np.isfinite(res.avg_actual_latency_ms)
+    assert res.total_actual_cost <= 0.01 * 20
+    assert set(kernels.launch_counts().values()) == {0}
+    assert rt.backend.pool.peak_resident >= 1
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m"])
+def test_serve_cli_on_cpu(arch, capsys):
+    """The port's serve CLI with ``--device cpu`` serves the smoke
+    reduction of either ported family."""
+    from repro_torch.launch import serve as serve_cli
+
+    rc = serve_cli.main(["--arch", arch, "--device", "cpu", "--n", "6",
+                         "--rate", "40", "--chips", "2", "--calib-tasks", "2",
+                         "--mean-tokens", "32", "--t-idl-s", "20"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert f"on {arch}" in out and "served n=6" in out
