@@ -9,12 +9,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build seconds
-   and the ptxas resource lines;
+   and the ptxas resource lines; count the tensor-core instructions
+   (``HMMA``/``HGMMA``) per kernel in the built ``flash_attention``
+   library's SASS (``cuobjdump -sass``), failing if the bf16 kernel has
+   none;
 2. hold each kernel against its plain PyTorch version at the shapes its main
    path gives it: the GBRT kernels (K1 multi-config, K2 blocked) bit-equal in
-   float64 and within 1e-4 in float32; the linear scan (K3) within 5e-5 in
-   float32 at an RG-LRU shape (B=2, S=4096, D=1024) and bit-equal as the
-   float64 surplus prefix of a 65,536-row chunk; the state replay bit-equal
+   float64 and within 1e-4 in float32; the linear scan (K3) bit-equal in its
+   exact-fold regime as the float64 surplus prefix of a 65,536-row chunk
+   (65,537 rows with the seed), and within 5e-5 in its chunked regime in
+   float32 at an RG-LRU shape (B=2, S=4096, D=1024); its row also records
+   whether ``torch.cumsum`` gives the left fold's bits on that prefix
+   (``library_bit_equal``, ``library_max_ulps``), the time of a one-thread
+   chain of 65,537 dependent float64 adds in registers from the same
+   library (``chain_floor_ms``, the exact fold's floor) and the RG-LRU
+   shape's byte bound; the state replay bit-equal
    on a 65,536-row chunk of the stream (its plain version, a per-row loop,
    runs on CPU copies of the same inputs), and so the sequential decision
    walk, whose codes are the replay's input there as on the main path;
@@ -82,6 +91,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -162,7 +172,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build = timed("build", phase_build)
+    build, sass = timed("build", phase_build)
     ctx = timed("stream", make_stream)
     rows = timed("kernels", phase_kernels, ctx, dev)
     rows += timed("attention", phase_attention, dev)
@@ -179,6 +189,8 @@ def main() -> int:
         for name, n in live["graph_replayed"].items():
             replayed[name] = replayed.get(name, 0) + n
     for row in rows:
+        if row["name"] == "flash_attention":
+            row["tensor_core_instructions"] = sass
         row["launches"] = launches[row["name"]]
         row["graph_replayed"] = replayed.get(row["name"], 0)
         if row["launches"] <= 0:
@@ -201,7 +213,7 @@ def timed(name, fn, *args):
 
 
 # ------------------------------------------------------------------ phase 1
-def phase_build() -> dict:
+def phase_build() -> tuple[dict, dict]:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -210,10 +222,45 @@ def phase_build() -> dict:
     log(f"[build] {len(report)} libraries in {secs:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
-            if re.search(r"Used \d+ registers|Compiling entry", line):
+            if re.search(r"Used \d+ registers|Compiling entry|spill", line):
                 log(f"[build] {name}: {line.strip()}")
-    return {"total": round(secs, 2),
-            **{n: round(r["seconds"], 2) for n, r in report.items()}}
+    sass = tensor_core_counts(_build.lib_path("flash_attention"),
+                              Path(_build.nvcc()).parent / "cuobjdump")
+    log(f"[build] flash_attention tensor-core instructions per kernel: "
+        f"{json.dumps(sass)}")
+    tc = {k: n for k, n in sass.items() if "fa_tc_kernel" in k}
+    if not tc or min(tc.values()) <= 0:
+        fail(f"the bf16 flash_attention kernel runs no tensor-core "
+             f"instruction: {sass}")
+    return ({"total": round(secs, 2),
+             **{n: round(r["seconds"], 2) for n, r in report.items()}}, sass)
+
+
+def tensor_core_counts(lib: Path, cuobjdump: Path) -> dict[str, int]:
+    """``HMMA``/``HGMMA`` instructions per kernel (demangled name) in the
+    SASS of a built library."""
+    exe = str(cuobjdump) if cuobjdump.is_file() else "cuobjdump"
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    names = list(counts)
+    demangled = names
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        demangled = out if len(out) == len(names) else names
+    short = (re.sub(r"^void |\(anonymous namespace\)::", "", d).split("(")[0]
+             for d in demangled)
+    return {d: counts[n] for n, d in zip(names, short)}
 
 
 # ------------------------------------------------------------ the stream
@@ -280,6 +327,39 @@ def graph_ms(fn, reps: int) -> float:
     return ms
 
 
+def max_ulps(a, b) -> int:
+    """Largest distance in units in the last place between two float64
+    tensors (signed values mapped onto one ordered integer line)."""
+    import numpy as np
+
+    ia, ib = (t.detach().cpu().numpy().view(np.int64) for t in (a, b))
+    lo = np.int64(-2**63)
+    ka, kb = (np.where(i < 0, lo - i, i) for i in (ia, ib))
+    return int(np.abs(ka - kb).max()) if ka.size else 0
+
+
+def chain_floor_ms(n: int, dev) -> float:
+    """Time of one thread adding a float64 step n times, each add waiting on
+    the last, in registers (``linear_scan_chain_floor``, built in the
+    linear-scan library): the floor of an exact fold over n rows."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = torch.empty(1, dtype=torch.float64, device=dev)
+    fn = _build.function("linear_scan", "linear_scan_chain_floor",
+                         [_build.P, _build.F64, _build.I32, _build.P])
+
+    def run():
+        _build.check(fn(_build.ptr(out), 1e-9, n, _build.stream_of(out)),
+                     "linear_scan_chain_floor")
+
+    ms = cuda_ms(run, 20)
+    if abs(float(out) - n * 1e-9) > 1e-6 * n * 1e-9:
+        fail(f"the chain floor's sum {float(out)} is not {n} x 1e-9")
+    return ms
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -324,6 +404,7 @@ def phase_kernels(ctx, dev) -> list[dict]:
     from repro_torch.kernels.linear_scan.kernel import (
         linear_scan_bsd,
         linear_scan_plain,
+        scan_regime,
     )
     from repro_torch.kernels.state_replay.kernel import (
         state_replay,
@@ -398,16 +479,22 @@ def phase_kernels(ctx, dev) -> list[dict]:
         N * T * (model.config.max_depth + 2), "float64",
         shape=f"N={N} F=2 T={T} I={I} L={L} f64", max_abs_err_f32=errs[f32]))
 
-    # ---- K3: RG-LRU shape in float32, surplus prefix in float64 ----------
+    # ---- K3: surplus prefix in float64 (exact fold), RG-LRU shape in
+    # float32 (chunked scan)
     g = torch.Generator(device="cpu").manual_seed(0)
     xs = torch.randn((2, 4096, 1024), generator=g).to(dev)
     a = torch.rand((2, 4096, 1024), generator=g).mul_(0.9).add_(0.1).to(dev)
+    if scan_regime(xs, a) != "chunked":
+        fail("K3 float32 gated does not take the chunked scan")
     y, st = linear_scan_bsd(xs, a)
     yp, sp = linear_scan_plain(xs, a)
     err32 = max(max_err(y, yp), max_err(st, sp))
     if err32 > 5e-5:
         fail(f"K3 float32 differs by {err32}")
     ms32 = cuda_ms(lambda: linear_scan_bsd(xs, a), 10)
+    graph32 = graph_ms(lambda: linear_scan_bsd(xs, a), 10)
+    rglru_bound = bound(4 * (3 * xs.numel() + st.numel()), 2 * xs.numel(),
+                        "float32")[0]
     delta = torch.as_tensor(
         np.concatenate([[1.3e-3], np.random.default_rng(0).normal(
             0.0, 2e-5, N)]), device=dev)[None, :, None].contiguous()
@@ -417,18 +504,27 @@ def phase_kernels(ctx, dev) -> list[dict]:
     want, _ = linear_scan_plain(delta)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    if scan_regime(delta, None) != "fold":
+        fail("K3 float64 does not take the exact fold")
     if not torch.equal(got, want):
         fail(f"K3 float64 prefix differs by {max_err(got, want)}")
     flat = delta.view(-1)
+    lib = torch.cumsum(flat, 0)
     rows.append(row(
         "linear_scan", "src/repro_torch/csrc/linear_scan.cu",
         "src/repro/kernels/linear_scan/kernel.py:55",
         cuda_ms(lambda: linear_scan_bsd(delta), 20), plain_ms,
         max_err(got, want), 2 * (N + 1) * 8 + 8, N + 1, "float64",
         library_ms=cuda_ms(lambda: torch.cumsum(flat, 0), 20),
-        shape=f"B=1 S={N + 1} D=1 f64 (surplus prefix)",
-        rglru_f32_ms=ms32, rglru_f32_max_abs_err=err32,
-        limit="latency of the S-step dependent add chain in one thread"))
+        library_bit_equal=torch.equal(lib, got.view(-1)),
+        library_max_ulps=max_ulps(lib, got.view(-1)),
+        chain_floor_ms=chain_floor_ms(N + 1, dev),
+        shape=f"B=1 S={N + 1} D=1 f64 (surplus prefix); rglru: B=2 S=4096 "
+              f"D=1024 f32 gated",
+        rglru_f32_ms=ms32, rglru_f32_graph_ms=graph32,
+        rglru_f32_bound_ms=rglru_bound, rglru_f32_max_abs_err=err32,
+        limit="exact fold: the S-step chain of dependent float64 adds; "
+              "chunked scan: bytes"))
 
     # ---- state walk + state replay on chunk 0 of the stream --------------
     from repro_torch.core import torch_core

@@ -3,10 +3,14 @@
 Every source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/kernels/<name>-<hash>.so`` at the root of the checkout
 (``build/`` is git-ignored), compiled for Hopper (``sm_90a``) on first use.
-The hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. ``build_all`` starts one ``nvcc`` per source, all
-together, and waits for them; ``library`` builds a single missing one on
-demand. Nothing here runs when the package is imported.
+Every source but ``flash_attention`` is built with ``-fmad=false``: their
+parities with the plain versions (bit-equal in float64) rest on no multiply
+and add being contracted into an FMA; the attention kernel's online softmax
+wants its FMAs (``flags``). The hash covers the source and its flags, so an
+edited source or flag rebuilds and an unchanged one loads at once.
+``build_all`` starts one ``nvcc`` per source, all together, and waits for
+them; ``library`` builds a single missing one on demand. Nothing here runs
+when the package is imported.
 
 A wrapper passes tensor pointers and PyTorch's current stream as
 ``c_void_p`` and raises when the C function returns a CUDA error code (the C
@@ -30,7 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gbrt_predict", "linear_scan", "state_replay", "flash_attention",
            "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# sources free to contract a multiply and an add into an FMA
+FMAD_SOURCES = ("flash_attention",)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -50,14 +56,19 @@ def nvcc() -> str:
                        "or put nvcc on PATH")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + (() if name in FMAD_SOURCES else ("-fmad=false",))
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    return [nvcc(), *flags(name), "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def build_all(names=SOURCES) -> dict[str, dict]:

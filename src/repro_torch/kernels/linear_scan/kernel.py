@@ -3,10 +3,19 @@
 ``linear_scan_bsd`` computes ``h_t = a_t * h_{t-1} + x_t`` over (B, S, D)
 from ``h_{-1} = 0`` and returns ``(h, final_state)``; ``a=None`` means
 ``a == 1`` (a running sum). It replaces the Pallas kernel of the same name in
-the JAX package; the CUDA source is ``repro_torch/csrc/linear_scan.cu``
-(float32 and float64, one thread per (b, d) channel, sequential over S). The
-plain version steps through S with one rounded multiply and one rounded add
-per step, exactly like the kernel, so the two agree bit for bit.
+the JAX package; the CUDA source is ``repro_torch/csrc/linear_scan.cu``.
+
+The wrapper picks one of two regimes from the dtype and from whether ``a``
+is given, never from the shape (``scan_regime``):
+
+- ``"fold"`` (float64, or ``a=None``): the exact left fold, one rounded
+  multiply and one rounded add per step, bit for bit like the plain version
+  (and so like ``np.cumsum``); the placement core's surplus prefix runs here.
+- ``"chunked"`` (float32 with ``a``): the RG-LRU regime, a chunked scan over
+  S in chunks of ``CHUNK_ROWS`` rows, within 5e-5 of the plain version.
+
+The plain version steps through S with one rounded multiply and one rounded
+add per step.
 """
 
 from __future__ import annotations
@@ -14,6 +23,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+
+CHUNK_ROWS = 128  # rows per chunk of the chunked regime
+
+
+def scan_regime(x: torch.Tensor, a: torch.Tensor | None) -> str:
+    """``"chunked"`` for a gated float32 scan, else ``"fold"``: read from the
+    dtype and from ``a`` alone, so the route never depends on the shape."""
+    return "chunked" if a is not None and x.dtype == torch.float32 else "fold"
 
 
 def linear_scan_plain(x: torch.Tensor, a: torch.Tensor | None = None):
@@ -31,7 +48,8 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
     """``(h, final_state)`` of the gated recurrence; see the module docstring.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``linear_scan_{f32,f64}`` or raise."""
+    ``linear_scan_fold_{f32,f64}`` or ``linear_scan_chunked_f32`` (by
+    ``scan_regime``) or raise."""
     if x.device.type == "cpu":
         return linear_scan_plain(x, a)
     if x.dtype not in (torch.float32, torch.float64):
@@ -46,12 +64,22 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
     B, S, D = x.shape
     y = torch.empty_like(x)
     state = torch.empty((B, D), dtype=x.dtype, device=x.device)
-    sfx = "f64" if x.dtype == torch.float64 else "f32"
     P, I32 = _build.P, _build.I32
-    fn = _build.function("linear_scan", f"linear_scan_{sfx}",
-                         [P] * 4 + [I32] * 3 + [P])
-    rc = fn(_build.ptr(x), _build.ptr(a), _build.ptr(y), _build.ptr(state),
-            B, S, D, _build.stream_of(x))
+    if scan_regime(x, a) == "fold":
+        sfx = "f64" if x.dtype == torch.float64 else "f32"
+        fn = _build.function("linear_scan", f"linear_scan_fold_{sfx}",
+                             [P] * 4 + [I32] * 3 + [P])
+        rc = fn(_build.ptr(x), _build.ptr(a), _build.ptr(y),
+                _build.ptr(state), B, S, D, _build.stream_of(x))
+    else:
+        n_chunks = max(1, -(-S // CHUNK_ROWS))
+        summary = torch.empty((2, B, n_chunks, D), dtype=x.dtype,
+                              device=x.device)
+        fn = _build.function("linear_scan", "linear_scan_chunked_f32",
+                             [P] * 5 + [I32] * 4 + [P])
+        rc = fn(_build.ptr(x), _build.ptr(a), _build.ptr(y),
+                _build.ptr(state), _build.ptr(summary), B, S, D, CHUNK_ROWS,
+                _build.stream_of(x))
     _build.check(rc, "linear_scan")
     _build.counted(linear_scan_bsd)
     return y, state

@@ -7,8 +7,9 @@ available (the CUDA kernels have no CPU mode). Imports torch, numpy and
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Float64 results must be bit-equal to the plain versions (the same rounded
-operations in the same order); float32 GBRT within 1e-4, float32 linear
-scan and attention within 5e-5, bf16 attention within 3e-2 (the reference's
+operations in the same order), as must the linear scan's exact fold;
+float32 GBRT within 1e-4, the linear scan's chunked float32 regime and
+float32 attention within 5e-5, bf16 attention within 3e-2 (the reference's
 own kernel tolerances); the SSD scan's y within 1e-4 in float32 and within
 3e-2 of max(1, |y|) in bf16, its float32 state within 1e-4. The kernels'
 CPU-side parity with the JAX package is in ``tests/test_torch_modeling.py``
@@ -29,12 +30,17 @@ from repro_torch.kernels.gbrt_predict.ops import (
     gbrt_predict,
     gbrt_predict_configs,
 )
-from repro_torch.kernels.linear_scan.kernel import linear_scan_plain
+from repro_torch.kernels.linear_scan.kernel import (
+    linear_scan_bsd,
+    linear_scan_plain,
+    scan_regime,
+)
 from repro_torch.kernels.linear_scan.ops import linear_scan, prefix_sum
 from repro_torch.kernels.state_replay.kernel import state_replay
 
 GBRT_TOL = 1e-4
 SCAN_TOL = 5e-5
+FOLD_TILE = 2048  # rows of the exact fold's shared-memory tile at D = 1
 
 
 def replay_inputs(rng, R, nd, nc, cap, lpw, fill):
@@ -194,7 +200,9 @@ ATTN_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_on_card(cuda_device, rng, dtype):
     """K4 against its plain version on the card: causal, windowed and
-    bidirectional, MQA/GQA/MHA, ragged key tiles, head dims 16 to 256."""
+    bidirectional, MQA/GQA/MHA, ragged key tiles, head dims 1 to 256 (20 and
+    1 are not multiples of 8: the bf16 kernel stages them element by
+    element)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bhsd,
         flash_attention_plain,
@@ -204,7 +212,9 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
     cases = [(1, 32, 32, 8, 64, True, 0), (2, 100, 4, 2, 64, True, 24),
              (1, 96, 4, 4, 16, True, 0), (1, 256, 8, 1, 128, True, 40),
              (2, 64, 4, 2, 32, False, 0), (1, 70, 2, 1, 256, True, 0),
-             (1, 50, 6, 3, 80, False, 17)]
+             (1, 50, 6, 3, 80, False, 17), (1, 200, 8, 2, 80, True, 0),
+             (2, 150, 8, 2, 256, True, 64), (1, 40, 4, 2, 20, True, 0),
+             (2, 9, 2, 1, 1, False, 0)]
     for B, S, H, Hkv, D, causal, window in cases:
         q = torch.as_tensor(rng.normal(size=(B, H, S, D)), dtype=dtype)
         k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
@@ -223,6 +233,77 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
                       for t in (q, k, v))
         got2 = flash_attention(qs, ks, vs, causal=causal, window=window)
         assert torch.equal(got2.transpose(1, 2).cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bf16_long_gqa_on_card(cuda_device, rng, D):
+    """K4's tensor-core path at a long causal prefill with GQA G = 4
+    (q (1, 32, 2048, D), k/v (1, 8, 2048, D)): many blocks per KV head,
+    key tiles skipped past the diagonal, within 3e-2 of the plain version
+    (computed on the card)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+
+    q = torch.as_tensor(rng.normal(size=(1, 32, 2048, D)),
+                        dtype=torch.bfloat16).to(cuda_device)
+    k, v = (torch.as_tensor(rng.normal(size=(1, 8, 2048, D)),
+                            dtype=torch.bfloat16).to(cuda_device)
+            for _ in range(2))
+    got = flash_attention_bhsd(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[torch.bfloat16], (D, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, FOLD_TILE - 1, FOLD_TILE, FOLD_TILE + 1, 4097,
+                               65_537])
+def test_linear_scan_fold_bit_equal_on_card(cuda_device, rng, n):
+    """K3's exact fold (float64, a == 1: the surplus prefix) at lengths
+    around its 2,048-row shared-memory tile and at the placement chunk's
+    65,537 rows: bit-equal to the plain version's left fold."""
+    x = torch.as_tensor(rng.normal(size=(1, n, 1)) * 1e-5)
+    x[0, 0, 0] = 1.3e-3
+    assert scan_regime(x, None) == "fold"
+    y, s = linear_scan_bsd(x.to(cuda_device))
+    yp, sp = linear_scan_plain(x)
+    assert torch.equal(y.cpu(), yp) and torch.equal(s.cpu(), sp)
+
+
+@pytest.mark.cuda
+def test_linear_scan_fold_gated_f64_on_card(cuda_device, rng):
+    """The exact fold, gated, over two 32-column slices (the second ragged,
+    8 wide) and tiles of 32 rows: bit-equal to the plain version."""
+    x = torch.as_tensor(rng.normal(size=(2, 300, 40)))
+    a = torch.as_tensor(rng.uniform(0.1, 1.0, size=(2, 300, 40)))
+    assert scan_regime(x, a) == "fold"
+    y, s = linear_scan_bsd(x.to(cuda_device), a.to(cuda_device))
+    yp, sp = linear_scan_plain(x, a)
+    assert torch.equal(y.cpu(), yp) and torch.equal(s.cpu(), sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D", [(2, 4096, 1024), (1, 1000, 64),
+                                   (2, 300, 40), (3, 77, 5), (2, 0, 3)])
+def test_linear_scan_chunked_on_card(cuda_device, rng, B, S, D):
+    """K3's chunked scan (float32, gated: the RG-LRU regime) at the RG-LRU
+    shape, at S not a multiple of the chunk, at D not a multiple of 32,
+    within one chunk and with no rows (a zero state): within 5e-5 of the
+    plain version."""
+    x = torch.as_tensor(rng.normal(size=(B, S, D)), dtype=torch.float32)
+    a = torch.as_tensor(rng.uniform(0.1, 1.0, size=(B, S, D)),
+                        dtype=torch.float32)
+    assert scan_regime(x, a) == "chunked"
+    y, s = linear_scan_bsd(x.to(cuda_device), a.to(cuda_device))
+    yp, sp = linear_scan_plain(x, a)
+    np.testing.assert_allclose(y.cpu().numpy(), yp.numpy(), rtol=0,
+                               atol=SCAN_TOL)
+    np.testing.assert_allclose(s.cpu().numpy(), sp.numpy(), rtol=0,
+                               atol=SCAN_TOL)
 
 
 @pytest.mark.cuda

@@ -183,6 +183,21 @@ def test_prefix_sum_is_the_sequential_fold(n, rng):
     assert np.array_equal(got, np.cumsum(x))
 
 
+@pytest.mark.parametrize("shape", [(1, 65_537, 1), (2, 4096, 1024),
+                                   (2, 300, 40), (1, 1, 1), (3, 0, 5)])
+def test_linear_scan_regime_route(shape):
+    """The CUDA wrapper's route: float64, or no gate, takes the exact fold;
+    a gated float32 scan the chunked scan; the same for every shape, so a
+    stream's numbers never depend on its chunk size."""
+    from repro_torch.kernels.linear_scan.kernel import scan_regime
+
+    for dtype in (torch.float32, torch.float64):
+        x = torch.zeros(shape, dtype=dtype)
+        assert scan_regime(x, None) == "fold"
+        want = "chunked" if dtype == torch.float32 else "fold"
+        assert scan_regime(x, torch.ones_like(x)) == want
+
+
 # ------------------------------------------------------------- replay
 @pytest.mark.parametrize("nd,nc,cap,lpw,fill", [
     (3, 4, 64, True, 20),      # the slice's shape: LPW fleet, 4 configs

@@ -9,7 +9,9 @@
   passes ``device="cpu"``;
 - a CPU tensor runs a kernel's plain version and leaves every launch
   counter at 0;
-- ``kernels.recording`` tallies the launches of the calling thread alone.
+- ``kernels.recording`` tallies the launches of the calling thread alone;
+- each CUDA source's nvcc flags (``-fmad=false`` on all but
+  ``flash_attention``) and the library hash over them.
 """
 
 from __future__ import annotations
@@ -83,6 +85,27 @@ def test_import_needs_no_triton_and_no_cuda():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["gbrt_predict", "linear_scan",
+                                  "state_replay", "flash_attention",
+                                  "decode_attention", "ssd_scan"])
+def test_nvcc_flags_per_source(name, monkeypatch):
+    """Every source keeps -fmad=false (its parity with the plain version
+    rests on no contracted multiply-add) except flash_attention, whose
+    softmax wants its FMAs; the library's hash covers the flags, so a
+    changed flag rebuilds."""
+    from repro_torch.kernels import _build
+
+    assert name in _build.SOURCES
+    flags = _build.flags(name)
+    assert ("-fmad=false" in flags) == (name != "flash_attention")
+    assert "arch=compute_90a,code=sm_90a" in flags
+    before = _build.lib_path(name)
+    monkeypatch.setattr(_build, "FMAD_SOURCES", () if name ==
+                        "flash_attention" else (name,))
+    assert _build.flags(name) != flags
+    assert _build.lib_path(name) != before
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
