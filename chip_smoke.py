@@ -10,9 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build seconds
    and the ptxas resource lines; count the tensor-core instructions
-   (``HMMA``/``HGMMA``) per kernel in the built ``flash_attention``
-   library's SASS (``cuobjdump -sass``), failing if the bf16 kernel has
-   none;
+   (``HMMA``/``HGMMA``) per kernel in the built ``flash_attention`` and
+   ``decode_attention`` libraries' SASS (``cuobjdump -sass``), failing if
+   either bf16 kernel has none;
 2. hold each kernel against its plain PyTorch version at the shapes its main
    path gives it: the GBRT kernels (K1 multi-config, K2 blocked) bit-equal in
    float64 and within 1e-4 in float32; the linear scan (K3) bit-equal in its
@@ -26,12 +26,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shape's byte bound; the state replay bit-equal
    on a 65,536-row chunk of the stream (its plain version, a per-row loop,
    runs on CPU copies of the same inputs), and so the sequential decision
-   walk, whose codes are the replay's input there as on the main path;
+   walk, whose codes are the replay's input there as on the main path, once
+   more on the same chunk under MinCost (``min_cost_ms``), its row also
+   recording the chain floor (``state_walk_chain_floor``: R steps of one
+   block barrier and a float64 handed from one thread to every warp,
+   ``chain_floor_ms``);
    flash attention (K4) at llama3.2-1b's prefill shape (q (1, 32, 32, 64),
    k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and
    flash decode (K5) at its decode shape (k/v (1, 8, 32, 64), length 33) and
    at B=4, S=4096 with ragged lengths and one length above S, within 5e-5 in
-   float32 and 3e-2 in bf16; the SSD scan (K6) in bf16 and float32 on the
+   float32 and 3e-2 in bf16, its row recording the split count at each
+   shape (``nsplit``, ``chunk``); the SSD scan (K6) in bf16 and float32 on the
    inputs mamba2-780m's first layer gives it at full width, at the serving
    prefill (x (1, 48, 32, 64), B/C (1, 32, 128), one chunk), at S=300 (3
    chunks of 128, the last padded) and at b=2, S=4096 (32 chunks), y within
@@ -189,8 +194,8 @@ def main() -> int:
         for name, n in live["graph_replayed"].items():
             replayed[name] = replayed.get(name, 0) + n
     for row in rows:
-        if row["name"] == "flash_attention":
-            row["tensor_core_instructions"] = sass
+        if row["name"] in sass:
+            row["tensor_core_instructions"] = sass[row["name"]]
         row["launches"] = launches[row["name"]]
         row["graph_replayed"] = replayed.get(row["name"], 0)
         if row["launches"] <= 0:
@@ -224,14 +229,17 @@ def phase_build() -> tuple[dict, dict]:
         for line in r["log"].splitlines():
             if re.search(r"Used \d+ registers|Compiling entry|spill", line):
                 log(f"[build] {name}: {line.strip()}")
-    sass = tensor_core_counts(_build.lib_path("flash_attention"),
-                              Path(_build.nvcc()).parent / "cuobjdump")
-    log(f"[build] flash_attention tensor-core instructions per kernel: "
-        f"{json.dumps(sass)}")
-    tc = {k: n for k, n in sass.items() if "fa_tc_kernel" in k}
-    if not tc or min(tc.values()) <= 0:
-        fail(f"the bf16 flash_attention kernel runs no tensor-core "
-             f"instruction: {sass}")
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = {}
+    for lib, tc_kernel in (("flash_attention", "fa_tc_kernel"),
+                           ("decode_attention", "dec_tc_kernel")):
+        sass[lib] = tensor_core_counts(_build.lib_path(lib), cuobjdump)
+        log(f"[build] {lib} tensor-core instructions per kernel: "
+            f"{json.dumps(sass[lib])}")
+        tc = {k: n for k, n in sass[lib].items() if tc_kernel in k}
+        if not tc or min(tc.values()) <= 0:
+            fail(f"the bf16 {lib} kernel runs no tensor-core instruction: "
+                 f"{sass[lib]}")
     return ({"total": round(secs, 2),
              **{n: round(r["seconds"], 2) for n, r in report.items()}}, sass)
 
@@ -360,6 +368,30 @@ def chain_floor_ms(n: int, dev) -> float:
     return ms
 
 
+def walk_chain_floor_ms(n: int, warps: int, dev) -> float:
+    """Time of n dependent steps of one block of ``warps`` warps, each step
+    one block barrier and a float64 that one thread writes to shared memory
+    and every warp reads and folds (``state_walk_chain_floor``, built in the
+    state-replay library): the floor of the walk's R-row chain."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = torch.empty(1 + warps, dtype=torch.float64, device=dev)
+    fn = _build.function("state_replay", "state_walk_chain_floor",
+                         [_build.P, _build.F64, _build.I32, _build.I32,
+                          _build.P])
+
+    def run():
+        _build.check(fn(_build.ptr(out), 1e-9, n, warps,
+                        _build.stream_of(out)), "state_walk_chain_floor")
+
+    ms = cuda_ms(run, 5)
+    if abs(float(out[0]) - n * 1e-9) > 1e-6 * n * 1e-9:
+        fail(f"the walk's chain floor ends at {float(out[0])}, not {n} x 1e-9")
+    return ms
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -411,6 +443,9 @@ def phase_kernels(ctx, dev) -> list[dict]:
         state_replay_plain,
         state_walk,
         state_walk_plain,
+        walk_ring_rows,
+        walk_smem_bytes,
+        walk_warps,
     )
 
     f64, f32 = torch.float64, torch.float32
@@ -565,6 +600,14 @@ def phase_kernels(ctx, dev) -> list[dict]:
     walk_plain_ms = (time.perf_counter() - t0) * 1e3
     if not torch.equal(guess.cpu(), want) or int(ovf.sum()):
         fail("state_walk differs from its plain version (or overflowed)")
+    # the same chunk under MinCost: every row goes to the edge
+    cost_in = dict(walk_in, minlat=False, deadline=DEADLINE_MS, s0=None)
+    cost_codes, cost_ovf = state_walk(nows, N, **cost_in)
+    t0 = time.perf_counter()
+    want_cost, _ = state_walk_plain(nows.cpu(), N, **on_cpu(cost_in))
+    walk_cost_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(cost_codes.cpu(), want_cost) or int(cost_ovf.sum()):
+        fail("state_walk under MinCost differs from its plain version")
     got = state_replay(nows, guess, **replay_in)
     t0 = time.perf_counter()
     want = state_replay_plain(nows.cpu(), guess.cpu(), **on_cpu(replay_in))
@@ -587,7 +630,14 @@ def phase_kernels(ctx, dev) -> list[dict]:
         0.0, N * (8 + 2 * nd * 8 + 5 * nc * 8 + 4) + pools,
         N * (live * 3 + nd * 4 + (nc + 1) * 6), "float64", shape=shape,
         plain_device="cpu",
-        limit="latency of the R-step dependent chain (two block barriers "
+        chain_floor_ms=walk_chain_floor_ms(N, walk_warps(nc), dev),
+        warps=walk_warps(nc), ring_rows=walk_ring_rows(nd, nc),
+        smem_bytes=walk_smem_bytes(nd, nc, cap),
+        min_cost_ms=cuda_ms(lambda: state_walk(nows, N, **cost_in), 3),
+        min_cost_plain_ms=walk_cost_plain_ms,
+        min_cost_codes=np.bincount(cost_codes.cpu().numpy(),
+                                   minlength=nc + 1).tolist(),
+        limit="latency of the R-step dependent chain (one block barrier "
               "per row)"))
     rows.append(row(
         "state_replay", "src/repro_torch/csrc/state_replay.cu",
@@ -663,6 +713,8 @@ def fd_case(shape, dtype, dev, lengths, reps):
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_bhd,
         decode_attention_plain,
+        decode_splits,
+        sm_count,
     )
 
     q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + 1)
@@ -683,7 +735,9 @@ def fd_case(shape, dtype, dev, lengths, reps):
     live = int(valid.sum())  # the cache slots this run's lengths leave live
     esz = q.element_size()
     kernel = lambda: decode_attention_bhd(q, k, v, lens)  # noqa: E731
+    nsplit, chunk = decode_splits(B, Hkv, H // Hkv, S, sm_count(q.device))
     return dict(
+        nsplit=nsplit, chunk=chunk,
         ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
         plain_ms=graph_ms(lambda: decode_attention_plain(q, k, v, lens),
                           max(reps // 10, 2)),
@@ -726,6 +780,10 @@ def phase_attention(dev) -> list[dict]:
     extra = {f"{tag}_{key}": c[key] for tag, c in
              (("f32", fd32), ("b4_s4096", fdb))
              for key in ("ms", "plain_ms", "library_ms", "err")}
+    extra["nsplit"], extra["chunk"] = fd["nsplit"], fd["chunk"]
+    extra["b4_s4096_nsplit"] = fdb["nsplit"]
+    extra["b4_s4096_chunk"] = fdb["chunk"]
+    extra["b4_s4096_eager_ms"] = fdb["eager_ms"]
     extra["eager_ms"] = fd["eager_ms"]
     extra["b4_s4096_bound_ms"] = bound(fdb["nbytes"], fdb["ops"],
                                        fdb["dtype"])[0]

@@ -205,11 +205,130 @@ __global__ void state_replay_kernel(
 // decisions and verifies them with one replay pass (a speculated fixed point
 // from a frozen-state guess needs up to R+1 passes on oscillating streams).
 //
-// One block: warp c < nc owns config c's pool in shared memory and scans it
-// (as in cil_block); thread 0 decides the row and updates the surplus and
-// edge horizons; the owner warp of a chosen config records the dispatch.
-// Two block barriers per row: latency-bound, like the replay.
-__global__ void state_walk_kernel(
+// What bounds it on the H100: the R-step dependent chain (one block; the
+// rest of the card idles), whose every step is a few dependent shared-memory
+// loads (~39 cycles each), float64 compares and warp collectives (redux.sync
+// ~47 cycles) and one block barrier. The design keeps device memory, all but
+// one block barrier and the pool scans off that chain:
+//
+//   * warp 0 decides, all its lanes running the same straight-line code: the
+//     balancer nomination, then config `lane`'s warm/cold flag (lane t
+//     merges config t's scan parts; one ballot gathers the flags), then the
+//     policy's masked lexicographic minimum over the
+//     targets, unrolled to a compile-time bound on the configs (NCM: 4, 8 or
+//     32) with every load issued ahead of the compare chain, and compares
+//     combined bitwise so that they stay predicated. It reads each row's
+//     inputs (nows, the five (R, nc) latency/cost/occupancy columns,
+//     elat/ecomp, nom_fixed) from a shared-memory ring that warp 1, the
+//     producer, fills with cp.async tiles of TR rows, WALK_STAGES tiles deep
+//     (walk_ring_rows, a compile-time tile), well ahead of the row being
+//     decided, and writes its codes to shared memory, which the producer
+//     copies out a tile at a time. Warp w runs on SMSP w % 4: warps 4, 8, ...
+//     only pass the barrier, so the decider has its SMSP to itself;
+//   * the other warps scan the pools, up to WALK_MAX_SPLIT warps a config
+//     (walk_split), each over every S-th run of 32 slots. In the step where
+//     row k is decided they apply row k-1's dispatch to their pool and scan
+//     it for row k+1 at nows[k+1]: the first maximum of `last` over idle
+//     slots (busy <= now <= last + t_idl) and the runner-up, as
+//     order-preserving 64-bit keys of `last` (-0 read as +0, so key order
+//     and ties are those of the doubles), each part reduced across its warp
+//     with redux.sync. The loads of four slots are issued ahead of their
+//     compares, and each slot is read and written by one thread only, so
+//     applying a dispatch needs no warp sync;
+//   * row k changes at most slot j of one pool, so in step k+1 the decider
+//     patches row k+1's scan (taken before row k's dispatch) with slot j's
+//     new (busy, last): the runner-up stands in when j was the maximum, and
+//     slot j competes with its new key and index. This is the first maximum
+//     by index of the whole pool, as `torch.argmax` over the masked `last`
+//     gives it in the plain version;
+//   * scan results and dispatches are double-buffered by row parity, so the
+//     decider's row k and the scanners' row k+1 cross in one block barrier.
+//
+// `state_walk_chain_floor` times the chain's floor alone: one block of the
+// walk's warp count, R steps of one barrier and a float64 that one thread
+// writes to shared memory and every warp reads and folds.
+
+constexpr int WALK_STAGES = 3;
+constexpr long long WALK_RING_BUDGET = 96 * 1024;  // bytes of the input ring
+// Warp w runs on SMSP w % 4. Warp 0 decides and runs alone on its SMSP (warps
+// 4, 8, ... only pass the barrier), so no other code competes for its
+// instruction cache; warp 1 stages the ring; the other warps scan pools.
+constexpr int WALK_MAX_WARPS = 24;
+constexpr int WALK_MAX_SCANNERS = WALK_MAX_WARPS - 2 - (WALK_MAX_WARPS - 1) / 4;  // 17
+constexpr int WALK_MAX_SPLIT = 2;  // warps scanning one pool (2 beat 1 and 4 on the card)
+constexpr unsigned kNoSlot = 0xffffffffu;
+
+__host__ __device__ inline long long walk_row_bytes(int nd, int nc) {
+  return 8LL * (1 + 5LL * nc + 2LL * nd) + 4;
+}
+
+// rows of a ring tile: the largest of 64, 32, ..., 2 whose stages fit the budget
+__host__ __device__ inline int walk_ring_rows(int nd, int nc) {
+  int tr = 64;
+  while (tr > 2 && WALK_STAGES * tr * walk_row_bytes(nd, nc) > WALK_RING_BUDGET) tr >>= 1;
+  return tr;
+}
+
+// scanner groups (one per config, two configs a group above 30) and the
+// warps that split each group's pool scan (up to 4, 30 scanner warps at most)
+__host__ __device__ inline int walk_scanners(int nc) {
+  return nc < WALK_MAX_SCANNERS ? nc : WALK_MAX_SCANNERS;
+}
+
+__host__ __device__ inline int walk_split(int nc) {
+  const int s = nc > 0 ? WALK_MAX_SCANNERS / nc : 1;
+  return s < 1 ? 1 : (s > WALK_MAX_SPLIT ? WALK_MAX_SPLIT : s);
+}
+
+// scanner index of warp w (w >= 2, w % 4 != 0), and the warps a block needs
+// for `scanners` of them
+__host__ __device__ inline int walk_scanner_of(int w) { return w - 2 - (w - 1) / 4; }
+
+__host__ __device__ inline int walk_block_warps(int nc) {
+  const int need = walk_scanners(nc) * walk_split(nc);
+  int W = 2;
+  while (walk_scanner_of(W) < need) ++W;  // warps 0 .. W-1 hold `need` scanners
+  return W;
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a key whose unsigned order is the order of the doubles; -0 is read as +0,
+// so equal doubles have equal keys. 0 is below every double's key: no slot.
+__device__ __forceinline__ unsigned long long okey(double x) {
+  const long long u = __double_as_longlong(__dadd_rn(x, 0.0));
+  return u < 0 ? ~(unsigned long long)u : ((unsigned long long)u | 0x8000000000000000ull);
+}
+
+// the warp's largest key and, among the lanes that hold it, the least slot
+__device__ __forceinline__ void warp_first_max(unsigned long long key, unsigned j,
+                                               unsigned long long& K, unsigned& J) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned H = __reduce_max_sync(kFull, hi);
+  const unsigned L = __reduce_max_sync(kFull, hi == H ? lo : 0u);
+  J = __reduce_min_sync(kFull, (hi == H && lo == L) ? j : kNoSlot);
+  K = ((unsigned long long)H << 32) | L;
+}
+
+template <int TR, int NCM>
+__global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
     const double* __restrict__ nows, int R, int n, int nd, int lpw,
     const double* __restrict__ ecomp, const double* __restrict__ elat,
     const double* __restrict__ h0, const int* __restrict__ nom_fixed, int nc,
@@ -222,158 +341,379 @@ __global__ void state_walk_kernel(
     int* __restrict__ ovf_out) {
   extern __shared__ __align__(16) double sm[];
   const int tid = threadIdx.x, lane = tid % kWarp, w = tid / kWarp;
+  const int NS = walk_scanners(nc), S = walk_split(nc);
+  const int SD = TR * (1 + 5 * nc + 2 * nd);  // doubles of one ring stage
   double* busy = sm;                          // (nc, cap)
   double* last = busy + (size_t)nc * cap;     // (nc, cap)
-  double* h = last + (size_t)nc * cap;        // (nd,)
-  double* s_comp = h + nd;                    // completion of the row's dispatch
-  int* s_cnt = reinterpret_cast<int*>(s_comp + 1);  // (nc,)
-  int* s_cold = s_cnt + nc;                   // (nc,) no idle container
-  int* s_j = s_cold + nc;                     // (nc,) MRU idle slot
-  int* s_dec = s_j + nc;                      // [chosen config or -1, slot]
+  double* h = last + (size_t)nc * cap;        // (nd,) edge horizons
+  double* ring = h + nd;                      // (WALK_STAGES, SD)
+  double* d_comp = ring + (size_t)WALK_STAGES * SD;  // [2] dispatched completion
+  // scan results [2][nc][S][best, runner-up]: keys, then slots
+  unsigned long long* res_k = reinterpret_cast<unsigned long long*>(d_comp + 2);
+  int* ring_nf = reinterpret_cast<int*>(res_k + 4 * nc * S);  // (WALK_STAGES, TR)
+  unsigned* res_j = reinterpret_cast<unsigned*>(ring_nf + WALK_STAGES * TR);
+  int* d_cj = reinterpret_cast<int*>(res_j + 4 * nc * S);  // [2][config, slot]
+  int* s_code = d_cj + 4;                          // (WALK_STAGES, TR) decided codes
+
+  // a ring stage: now[TR], latw, latc, costc, occw, occc [TR * nc] each,
+  // elat, ecomp [TR * nd] each
+  auto stage_of = [&](int r) { return ring + (size_t)((r / TR) % WALK_STAGES) * SD; };
+  auto issue = [&](int t) {  // producer warp: tile t's rows into its stage
+    const int r0 = t * TR, rows = min(r0 + TR, n) - r0;
+    if (rows <= 0) return;
+    double* sb = ring + (size_t)(t % WALK_STAGES) * SD;
+    int* nb = ring_nf + (t % WALK_STAGES) * TR;
+    for (int i = lane; i < rows; i += kWarp) {
+      cp_async8(sb + i, nows + r0 + i);
+      if (nd > 0 && !lpw) cp_async4(nb + i, nom_fixed + r0 + i);
+    }
+    const double* cols[5] = {latw, latc, costc, occw, occc};
+    for (int x = 0; x < 5 && nc > 0; ++x)
+      for (int i = lane; i < rows * nc; i += kWarp)
+        cp_async8(sb + TR + (size_t)x * TR * nc + i, cols[x] + (size_t)r0 * nc + i);
+    const double* ecols[2] = {elat, ecomp};
+    for (int x = 0; x < 2 && nd > 0; ++x)
+      for (int i = lane; i < rows * nd; i += kWarp)
+        cp_async8(sb + TR + (size_t)5 * TR * nc + (size_t)x * TR * nd + i,
+                  ecols[x] + (size_t)r0 * nd + i);
+  };
+  auto flush = [&](int t) {  // producer warp: tile t's decided codes out
+    const int r0 = t * TR, rows = min(r0 + TR, n) - r0;
+    const int* cb = s_code + (t % WALK_STAGES) * TR;
+    for (int i = lane; i < rows; i += kWarp) code[r0 + i] = cb[i];
+  };
+
   for (int i = tid; i < nc * cap; i += blockDim.x) {
     busy[i] = busy0[i];
     last[i] = last0[i];
   }
   for (int i = tid; i < nd; i += blockDim.x) h[i] = h0[i];
-  for (int i = tid; i < nc; i += blockDim.x) s_cnt[i] = cnt0[i];
   for (int r = n + tid; r < R; r += blockDim.x) code[r] = -1;  // pad rows
+  if (w == 1) {
+    for (int t = 0; t < WALK_STAGES - 1; ++t) {
+      issue(t);
+      cp_commit();
+    }
+    cp_wait<WALK_STAGES - 2>();  // tile 0 has landed
+  }
+
+  // scanner warp sw: part `sub` of group g's configs g and g + NS; it scans
+  // slots sub * 32 + lane + 32 S i; cntr: the configs' live-slot counts
+  const bool idle = w > 0 && (w & 3) == 0;  // keeps SMSP 0 to the decider
+  const int sw = walk_scanner_of(w), g = sw / S, sub = sw - g * S;
+  const bool scanner = !idle && w >= 2 && g < NS;
+  int cntr[2] = {0, 0};
+  if (scanner) {
+    for (int ci = 0; ci < 2; ++ci)
+      if (g + ci * NS < nc) cntr[ci] = cnt0[g + ci * NS];
+  }
+  // row r's scan of part `sub` of config c's pool as it stands
+  auto scan = [&](int c, int cnt, int r) {
+    const int o = (((r & 1) * nc + c) * S + sub) * 2;  // this part's result
+    if (cnt == 0) {  // an empty pool: no idle slot
+      if (lane == 0) {
+        res_k[o] = res_k[o + 1] = 0;
+        res_j[o] = res_j[o + 1] = kNoSlot;
+      }
+      return;
+    }
+    const double now = stage_of(r)[r % TR];
+    const double* b = busy + (size_t)c * cap;
+    const double* l = last + (size_t)c * cap;
+    unsigned long long k1 = 0, k2 = 0;
+    unsigned j1 = kNoSlot, j2 = kNoSlot;
+    // four slots a batch, their loads issued ahead of the compares
+    const int stride = kWarp * S;
+    for (int j0 = sub * kWarp + lane; j0 < cnt; j0 += 4 * stride) {
+      double bj[4], lj[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u * stride;
+        bj[u] = j < cnt ? b[j] : CUDART_INF;
+        lj[u] = j < cnt ? l[j] : -CUDART_INF;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool idle = (bj[u] <= now) & (now <= __dadd_rn(lj[u], t_idl));
+        const unsigned long long key = idle ? okey(lj[u]) : 0ull;
+        // ascending j: a later equal key ranks after
+        const bool first = key > k1, second = !first & (key > k2);
+        const unsigned j = (unsigned)(j0 + u * stride);
+        k2 = first ? k1 : (second ? key : k2);
+        j2 = first ? j1 : (second ? j : j2);
+        k1 = first ? key : k1;
+        j1 = first ? j : j1;
+      }
+    }
+    unsigned long long K1, K2 = 0;
+    unsigned J1, J2 = kNoSlot;
+    warp_first_max(k1, j1, K1, J1);
+    if (K1 != 0) {  // warp-uniform: the runner-up, the winner's lane offering its second
+      const bool own = (J1 % kWarp) == (unsigned)lane;
+      warp_first_max(own ? k2 : k1, own ? j2 : j1, K2, J2);
+    }
+    if (lane == 0) {
+      res_k[o] = K1;
+      res_k[o + 1] = K2;
+      res_j[o] = J1;
+      res_j[o + 1] = J2;
+    }
+  };
   __syncthreads();
+  if (scanner && n > 0) {
+    for (int ci = 0; ci < 2; ++ci)
+      if (g + ci * NS < nc) scan(g + ci * NS, cntr[ci], 0);
+  }
+  __syncthreads();
+
+  // the deciding warp: lane t holds target t (and t + 32, the edge when
+  // nc = 32) and config t's slot count; s, the surplus, is the same in
+  // every lane
   const int T = nc + (nd > 0 ? 1 : 0);
   const int edge_col = nd > 0 ? T - 1 : -1;
   double s = minlat ? s0[0] : 0.0;
-  int ovf = 0;
-  for (int r = 0; r < n; ++r) {
-    const double now = nows[r];
-    if (w < nc) {  // warm/cold scan of config w's pool before row r
-      const double* b = busy + (size_t)w * cap;
-      const double* l = last + (size_t)w * cap;
-      double bl = -CUDART_INF;
-      int bj = cap;
-      bool idle_any = false;
-      const int cnt = s_cnt[w];
-      for (int j = lane; j < cnt; j += kWarp) {
-        if (b[j] <= now && now <= __dadd_rn(l[j], t_idl)) {
-          idle_any = true;
-          if (l[j] > bl) {
-            bl = l[j];
-            bj = j;
-          }
-        }
-      }
-      for (int off = kWarp / 2; off > 0; off >>= 1) {
-        const double ol = __shfl_down_sync(kFull, bl, off);
-        const int oj = __shfl_down_sync(kFull, bj, off);
-        if (ol > bl || (ol == bl && oj < bj)) {
-          bl = ol;
-          bj = oj;
-        }
-      }
-      const bool any = __ballot_sync(kFull, idle_any) != 0u;
-      if (lane == 0) {
-        s_cold[w] = any ? 0 : 1;
-        s_j[w] = bj;
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      // balancer nomination and the nominated device's predicted wait
+  unsigned ovf = 0;
+  int dcnt = (w == 0 && lane < nc) ? cnt0[lane] : 0;
+  int pc = -1, pj = -1;  // the last dispatch: config, slot, completion
+  double pcomp = 0.0;
+  for (int k = 0; k < n; ++k) {
+    if (w == 0) {
+      const double* sb = stage_of(k);
+      const int off = k % TR;
+      const double now = sb[off];
+      const double* rlatw = sb + TR + (size_t)off * nc;
+      const double* rlatc = rlatw + (size_t)TR * nc;
+      const double* rcost = rlatc + (size_t)TR * nc;
+      const double* roccw = rcost + (size_t)TR * nc;
+      const double* roccc = roccw + (size_t)TR * nc;
+      const double* relat = sb + TR + (size_t)5 * TR * nc + (size_t)off * nd;
+      const double* recomp = relat + (size_t)TR * nd;
+      // balancer nomination: the first device of least predicted wait
       int d = 0;
       double wait = 0.0;
       if (nd > 0) {
         if (lpw) {
           wait = fmax(__dsub_rn(h[0], now), 0.0);
-          for (int k = 1; k < nd; ++k) {
-            const double wk = fmax(__dsub_rn(h[k], now), 0.0);
-            if (wk < wait) {
-              wait = wk;
-              d = k;
-            }
+#pragma unroll
+          for (int e = 1; e < 4; ++e) {  // straight-line for small fleets
+            const double we = fmax(__dsub_rn(h[e < nd ? e : 0], now), 0.0);
+            const bool less = (e < nd) & (we < wait);
+            d = less ? e : d;
+            wait = less ? we : wait;
+          }
+          for (int e = 4; e < nd; ++e) {
+            const double we = fmax(__dsub_rn(h[e], now), 0.0);
+            d = we < wait ? e : d;
+            wait = we < wait ? we : wait;
           }
         } else {
-          d = nom_fixed[r];
+          d = ring_nf[((k / TR) % WALK_STAGES) * TR + off];
           wait = fmax(__dsub_rn(h[d], now), 0.0);
         }
       }
-      const size_t rc = (size_t)r * nc;
+      const double edge_lat = nd > 0 ? __dadd_rn(wait, relat[d]) : 0.0;
+      // config `lane`: warm/cold from row k's scan, with row k-1's dispatch
+      // patched in
+      const int buf = k & 1;
+      // the S parts' (best, runner-up) pairs merged by (key desc, slot asc),
+      // all loads issued ahead, compares bitwise (no branches)
+      const int o = (buf * nc + (lane < nc ? lane : 0)) * S * 2;
+      unsigned long long KA = res_k[o], KB = res_k[o + 1];
+      unsigned JA = res_j[o], JB = res_j[o + 1];
+      unsigned long long pk[2 * (WALK_MAX_SPLIT - 1)];
+      unsigned pj2[2 * (WALK_MAX_SPLIT - 1)];
+#pragma unroll
+      for (int i = 0; i < 2 * (WALK_MAX_SPLIT - 1); ++i) {
+        const int q = 2 + i < 2 * S ? o + 2 + i : o;
+        pk[i] = res_k[q];
+        pj2[i] = res_j[q];
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * (WALK_MAX_SPLIT - 1); ++i) {
+        const unsigned long long kq = pk[i];
+        const unsigned jq = pj2[i];
+        const bool live = 2 + i < 2 * S;
+        const bool a = live & ((kq > KA) | ((kq == KA) & (jq < JA)));
+        const bool b = live & !a & ((kq > KB) | ((kq == KB) & (jq < JB)));
+        KB = a ? KA : (b ? kq : KB);
+        JB = a ? JA : (b ? jq : JB);
+        KA = a ? kq : KA;
+        JA = a ? jq : JA;
+      }
+      if (lane == pc) {  // slot pj changed: its old value drops out, its new one competes
+        if (JA == (unsigned)pj) {
+          KA = KB;
+          JA = JB;
+        }
+        if (pcomp <= now && now <= __dadd_rn(pcomp, t_idl)) {
+          const unsigned long long kc = okey(pcomp);
+          if (kc > KA || (kc == KA && (unsigned)pj < JA)) {
+            KA = kc;
+            JA = (unsigned)pj;
+          }
+        }
+      }
+      const unsigned coldm = __ballot_sync(kFull, lane < nc && KA == 0);
+      // the policy's masked lexicographic minimum over the targets, the same
+      // in every lane: configs unrolled to NCM (loads at clamped indices, all
+      // issued ahead of the compare chain), then the edge, target nc
       const double allowed = minlat ? __dadd_rn(c_max, __dmul_rn(alpha, s)) : 0.0;
       int best = -1;
       double best_lat = 0.0, best_cost = 0.0;
-      for (int t = 0; t < T; ++t) {
-        double lat, cost;
-        if (t < nc) {
-          lat = s_cold[t] ? latc[rc + t] : latw[rc + t];
-          cost = costc[rc + t];
-        } else {
-          lat = __dadd_rn(wait, elat[(size_t)r * nd + d]);
-          cost = 0.0;
-        }
-        const bool feas = minlat ? cost <= allowed : lat <= deadline;
-        if (!feas) continue;
-        const bool better = best < 0 ||
-            (minlat ? (lat < best_lat || (lat == best_lat && cost < best_cost))
-                    : (cost < best_cost || (cost == best_cost && lat < best_lat)));
-        if (better) {
-          best = t;
-          best_lat = lat;
-          best_cost = cost;
-        }
+      auto consider = [&](int t, double lat, double cost, bool feas) {
+        // bitwise, not short-circuit: predicated code, no branches
+        const bool better = feas & ((best < 0) |
+            (minlat ? ((lat < best_lat) | ((lat == best_lat) & (cost < best_cost)))
+                    : ((cost < best_cost) | ((cost == best_cost) & (lat < best_lat)))));
+        best = better ? t : best;
+        best_lat = better ? lat : best_lat;
+        best_cost = better ? cost : best_cost;
+      };
+#pragma unroll
+      for (int t = 0; t < NCM; ++t) {
+        const int tc = t < nc ? t : 0;
+        const double lat = (coldm >> tc) & 1u ? rlatc[tc] : rlatw[tc];
+        const double cost = rcost[tc];
+        consider(t, lat, cost, (t < nc) & (minlat ? cost <= allowed : lat <= deadline));
       }
+      if (nd > 0) consider(nc, edge_lat, 0.0, minlat ? 0.0 <= allowed : edge_lat <= deadline);
       if (best < 0) {
         if (edge_col >= 0) {
           best = edge_col;  // MinLatency's fallback set / MinCost's edge queue
           best_cost = 0.0;
         } else {            // MinLatency without an edge: every target
-          for (int t = 0; t < T; ++t) {
-            const double lat = s_cold[t] ? latc[rc + t] : latw[rc + t];
-            const double cost = costc[rc + t];
-            if (best < 0 || lat < best_lat || (lat == best_lat && cost < best_cost)) {
-              best = t;
-              best_lat = lat;
-              best_cost = cost;
-            }
+#pragma unroll
+          for (int t = 0; t < NCM; ++t) {
+            const int tc = t < nc ? t : 0;
+            const double lat = (coldm >> tc) & 1u ? rlatc[tc] : rlatw[tc];
+            const double cost = rcost[tc];
+            const bool better = (t < nc) & ((best < 0) | (lat < best_lat) |
+                                            ((lat == best_lat) & (cost < best_cost)));
+            best = better ? t : best;
+            best_lat = better ? lat : best_lat;
+            best_cost = better ? cost : best_cost;
           }
         }
       }
       if (minlat) s = __dadd_rn(s, __dsub_rn(c_max, best_cost));
-      code[r] = best;
-      s_dec[0] = -1;
-      if (best == edge_col) {
-        h[d] = __dadd_rn(fmax(h[d], now), ecomp[(size_t)r * nd + d]);
-      } else {
-        const bool cold = s_cold[best] != 0;
-        s_dec[0] = best;
-        s_dec[1] = cold ? -1 : s_j[best];
-        s_comp[0] = __dadd_rn(now, cold ? occc[rc + best] : occw[rc + best]);
+      pc = -1;
+      pj = -1;
+      if (best >= 0 && best == edge_col) {
+        if (lane == 0) h[d] = __dadd_rn(fmax(h[d], now), recomp[d]);
+      } else if (best >= 0) {
+        const bool cold = (coldm >> best) & 1u;
+        const double comp = __dadd_rn(now, cold ? roccc[best] : roccw[best]);
+        int j;
+        if (cold) {  // a cold start into slot cnt
+          j = __shfl_sync(kFull, dcnt, best);
+          if (j >= cap) {
+            ovf |= 1u << best;  // pool full: no write, the caller grows the pool
+            j = -1;
+          } else if (lane == best) {
+            dcnt = j + 1;
+          }
+        } else {
+          j = (int)__shfl_sync(kFull, JA, best);
+        }
+        if (j >= 0) {
+          pc = best;
+          pj = j;
+          pcomp = comp;
+        }
+      }
+      if (lane == 0) {
+        s_code[((k / TR) % WALK_STAGES) * TR + off] = best;
+        d_cj[buf * 2] = pc;
+        d_cj[buf * 2 + 1] = pj;
+        d_comp[buf] = pcomp;
+      }
+    } else if (w == 1) {
+      if (k % TR == 0) {  // tile t's rows are being decided: tile t + 2 in flight
+        issue(k / TR + WALK_STAGES - 1);
+        cp_commit();
+        if (k > 0) flush(k / TR - 1);  // tile t - 1 is decided
+        cp_wait<WALK_STAGES - 2>();    // tile t + 1 has landed
+      }
+    } else if (scanner) {
+      if (k > 0) {  // row k-1's dispatch: the thread that scans slot dj writes it
+        // (each slot is read and written by one thread only: no warp sync)
+        const int o = ((k - 1) & 1) * 2;
+        const int dc = d_cj[o], dj = d_cj[o + 1];
+        for (int ci = 0; ci < 2; ++ci) {
+          const int c = g + ci * NS;
+          if (c < nc && c == dc && dj >= 0) {
+            if (lane == dj % kWarp && sub == (dj / kWarp) % S) {
+              const double dcomp = d_comp[(k - 1) & 1];
+              busy[(size_t)c * cap + dj] = dcomp;
+              last[(size_t)c * cap + dj] = dcomp;
+            }
+            if (dj == cntr[ci]) ++cntr[ci];
+          }
+        }
+      }
+      if (k + 1 < n) {
+        for (int ci = 0; ci < 2; ++ci)
+          if (g + ci * NS < nc) scan(g + ci * NS, cntr[ci], k + 1);
       }
     }
     __syncthreads();
-    if (w < nc && w == s_dec[0] && lane == 0) {
-      int j = s_dec[1];
-      if (j < 0) {  // cold start into slot cnt
-        j = s_cnt[w];
-        if (j >= cap) {
-          ovf = 1;  // pool full: the caller grows the pool and re-runs
-          j = -1;
-        } else {
-          s_cnt[w] = j + 1;
-        }
-      }
-      if (j >= 0) {
-        busy[(size_t)w * cap + j] = s_comp[0];
-        last[(size_t)w * cap + j] = s_comp[0];
-      }
-    }
-    __syncwarp();
   }
-  if (lane == 0 && w < nc) ovf_out[w] = ovf;
+  if (w == 1) {
+    if (n > 0) flush((n - 1) / TR);
+    cp_wait<0>();
+  }
+  if (tid == 0)
+    for (int c = 0; c < nc; ++c) ovf_out[c] = (ovf >> c) & 1u;
+}
+
+using WalkKernel = decltype(&state_walk_kernel<64, 4>);
+
+// the instantiation for the ring tile walk_ring_rows(nd, nc) and the least
+// of 4, 8, 32 configs that covers nc
+template <int NCM>
+WalkKernel walk_kernel_for(int tr) {
+  switch (tr) {
+    case 64: return state_walk_kernel<64, NCM>;
+    case 32: return state_walk_kernel<32, NCM>;
+    case 16: return state_walk_kernel<16, NCM>;
+    case 8: return state_walk_kernel<8, NCM>;
+    case 4: return state_walk_kernel<4, NCM>;
+    default: return state_walk_kernel<2, NCM>;
+  }
+}
+
+WalkKernel walk_kernel(int tr, int nc) {
+  return nc <= 4 ? walk_kernel_for<4>(tr) : (nc <= 8 ? walk_kernel_for<8>(tr) : walk_kernel_for<32>(tr));
+}
+
+__global__ void walk_chain_floor_kernel(double inc, int R, double* out) {
+  __shared__ double x[2];
+  const int tid = threadIdx.x, lane = tid % kWarp, w = tid / kWarp;
+  if (tid == 0) x[1] = 0.0;
+  __syncthreads();
+  double acc = 0.0;
+  for (int r = 0; r < R; ++r) {
+    if (tid == 0) x[r & 1] = __dadd_rn(x[(r + 1) & 1], inc);  // the previous step's value
+    __syncthreads();
+    acc = __dadd_rn(acc, x[r & 1]);
+  }
+  if (lane == 0) out[1 + w] = acc;
+  if (tid == 0) out[0] = x[(R + 1) & 1];
 }
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory of the walk's one block: the pools, the edge horizons, the
+// input ring (walk_ring_rows), the double-buffered scan results of every
+// part of every pool and the dispatches, the ring of decided codes.
 long long state_walk_smem_bytes(int nd, int nc, int cap) {
-  return (long long)(2LL * nc * cap + nd + 1) * sizeof(double) + (3LL * nc + 2) * sizeof(int);
+  const long long TR = walk_ring_rows(nd, nc), S = walk_split(nc);
+  const long long doubles = 2LL * nc * cap + nd + WALK_STAGES * TR * (1 + 5LL * nc + 2LL * nd) + 2;
+  const long long keys = 4LL * nc * S;
+  const long long ints = 2 * WALK_STAGES * TR + 4LL * nc * S + 4;
+  return 8 * (doubles + keys) + 4 * ints;
 }
 
 int state_walk_f64(const double* nows, int R, int n, int nd, int lpw, const double* ecomp,
@@ -383,16 +723,27 @@ int state_walk_f64(const double* nows, int R, int n, int nd, int lpw, const doub
                    const double* last0, const int* cnt0, int minlat, double c_max, double alpha,
                    const double* s0, double deadline, int* code, int* ovf, void* stream) {
   if (R == 0) return 0;
+  if (nc > 32) return (int)cudaErrorInvalidValue;  // the decider's config masks
   const long long bytes = state_walk_smem_bytes(nd, nc, cap);
+  const WalkKernel kernel = walk_kernel(walk_ring_rows(nd, nc), nc);
   if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(state_walk_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const int threads = kWarp * (nc > 0 ? nc : 1);
-  state_walk_kernel<<<1, threads, (size_t)bytes, (cudaStream_t)stream>>>(
+  const int threads = kWarp * walk_block_warps(nc);
+  kernel<<<1, threads, (size_t)bytes, (cudaStream_t)stream>>>(
       nows, R, n, nd, lpw, ecomp, elat, h0, nom_fixed, nc, cap, t_idl, latw, latc, costc,
       occw, occc, busy0, last0, cnt0, minlat, c_max, alpha, s0, deadline, code, ovf);
+  return (int)cudaGetLastError();
+}
+
+// The walk's chain floor: one block of `warps` warps through R steps of one
+// barrier and a float64 handed from one thread to every warp. out: 1 + warps
+// doubles (thread 0's running sum R x inc, then each warp's fold).
+int state_walk_chain_floor(double* out, double inc, int R, int warps, void* stream) {
+  if (warps < 1 || warps > 32) return (int)cudaErrorInvalidValue;
+  walk_chain_floor_kernel<<<1, kWarp * warps, 0, (cudaStream_t)stream>>>(inc, R, out);
   return (int)cudaGetLastError();
 }
 

@@ -3,11 +3,13 @@
 Every source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/kernels/<name>-<hash>.so`` at the root of the checkout
 (``build/`` is git-ignored), compiled for Hopper (``sm_90a``) on first use.
-Every source but ``flash_attention`` is built with ``-fmad=false``: their
-parities with the plain versions (bit-equal in float64) rest on no multiply
-and add being contracted into an FMA; the attention kernel's online softmax
-wants its FMAs (``flags``). The hash covers the source and its flags, so an
-edited source or flag rebuilds and an unchanged one loads at once.
+Every source but the two attention kernels (``flash_attention``,
+``decode_attention``) is built with ``-fmad=false``: their parities with the
+plain versions (bit-equal in float64) rest on no multiply and add being
+contracted into an FMA; the attention kernels' online softmax wants its FMAs
+and is held to a tolerance (``flags``). The hash covers the source and its
+flags, so an edited source or flag rebuilds and an unchanged one loads at
+once.
 ``build_all`` starts one ``nvcc`` per source, all together, and waits for
 them; ``library`` builds a single missing one on demand. Nothing here runs
 when the package is imported.
@@ -36,7 +38,7 @@ SOURCES = ("gbrt_predict", "linear_scan", "state_replay", "flash_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # sources free to contract a multiply and an add into an FMA
-FMAD_SOURCES = ("flash_attention",)
+FMAD_SOURCES = ("flash_attention", "decode_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -5,9 +5,14 @@ length-masked KV cache: q (B, H, 1, D), k/v (B, Hkv, S, D), ``lengths`` (B,)
 int32; slot ``s`` of row ``b`` is valid when ``s < lengths[b]``, so a length
 above S makes every slot valid (the serving executor decodes past its cache,
 see ``modeling/lm.py``). It replaces the Pallas kernel of the same name in
-the JAX package; the CUDA source is ``repro_torch/csrc/decode_attention.cu``
-(split-K over the slot axis, then a combine of the partial softmax states
-when the cache spans more than one split).
+the JAX package; the CUDA source is ``repro_torch/csrc/decode_attention.cu``:
+split-K over the slot axis, the bf16 path on the tensor cores (the G query
+heads of a KV group packed as the rows of one mma tile, each warp streaming
+its K/V tiles through a cp.async ring), then a combine of the partial
+softmax states when the cache spans more than one split. ``decode_splits``
+picks the splits from the shapes and the card's SM count, never from
+``lengths``, so a decode step captured in a CUDA graph stays valid as the
+lengths change on the device.
 Both versions compute in float32 with the TPU kernel's ``NEG_INF = -2e38``
 and ``max(l, 1e-30)`` and return the input dtype; a length of 0 gives 0, as
 the kernel does (the reference's ``ref.py`` would give the mean of V).
@@ -24,6 +29,50 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HEADS_PER_BLOCK = 16  # query heads of a KV group one block serves
+SPLIT_ALIGN = 64      # a split's slots are a multiple of this
+MIN_SPLIT = 256       # slots of the shortest split the rule makes
+BLOCKS_PER_SM = 4     # blocks the split rule aims for per SM
+_SM_COUNT: dict[int, int] = {}
+
+
+def decode_splits(B: int, Hkv: int, G: int, S: int, n_sm: int) \
+        -> tuple[int, int]:
+    """``(nsplit, chunk)``: the slot axis cut into ``nsplit`` splits of
+    ``chunk`` slots (a multiple of ``SPLIT_ALIGN``, or S itself for one
+    split) that tile [0, S): enough for ``BLOCKS_PER_SM`` blocks per SM
+    over the ``B * Hkv * ceil(G / 16)`` (batch, KV head, head group)
+    blocks of one split, and no more splits than ``MIN_SPLIT``-slot pieces
+    of S (shorter splits cost more in their combine than they gain: 16
+    splits of 256 slots beat 8 and 32 at k/v (4, 8, 4096, 64) in bf16 on an
+    H100). A cache of at most ``MIN_SPLIT`` slots (the serving shape,
+    S = 32) is one split: one launch, no workspace. Reads no lengths."""
+    if S <= MIN_SPLIT:
+        return 1, S
+    blocks = B * Hkv * -(-G // HEADS_PER_BLOCK)
+    want = -(-BLOCKS_PER_SM * n_sm // blocks)
+    n = max(1, min(want, -(-S // MIN_SPLIT)))
+    if n == 1:
+        return 1, S
+    chunk = -(-(-(-S // n)) // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-S // chunk), chunk
+
+
+def workspace_floats(B: int, H: int, D: int, nsplit: int) -> int:
+    """float32 workspace of the partial softmax states: ``(m, l, acc[D])``
+    per (batch, head, split), none for one split."""
+    return B * H * nsplit * (D + 2) if nsplit > 1 else 0
+
+
+def sm_count(device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def decode_attention_plain(q, k, v, lengths):
@@ -76,10 +125,9 @@ def decode_attention_bhd(q, k, v, lengths, *, out=None):
     Returns ``out`` (allocated when not given).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``decode_attention_{f32,bf16}`` (partial and combine kernels; the
-    partial kernel alone for a cache of one 256-slot chunk) or raise. The
-    float32 workspace of the partial softmax states, when there is more than
-    one chunk, is allocated here."""
+    ``decode_attention_{f32,bf16}`` (the split kernel, and the combine
+    kernel when ``decode_splits`` gives more than one split) or raise. The
+    float32 workspace of the partial softmax states is allocated here."""
     if q.device.type == "cpu":
         res = decode_attention_plain(q, k, v, lengths)
         return res if out is None else out.copy_(res)
@@ -88,19 +136,18 @@ def decode_attention_bhd(q, k, v, lengths, *, out=None):
     _check(q, k, v, lengths, out)
     B, H, _, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    P, I32 = _build.P, _build.I32
-    ws_floats = _build.function("decode_attention",
-                                "decode_attention_workspace_floats", [I32] * 4)
-    n_ws = ws_floats(B, H, S, D)
+    nsplit, chunk = decode_splits(B, Hkv, H // Hkv, S, sm_count(q.device))
+    n_ws = workspace_floats(B, H, D, nsplit)
     ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) \
         if n_ws else None
+    P, I32 = _build.P, _build.I32
     fn = _build.function("decode_attention",
                          f"decode_attention_{_SUFFIX[q.dtype]}",
-                         [P] * 6 + [I32] * 5 + [P, _build.F32, P])
+                         [P] * 6 + [I32] * 5 + [P, _build.F32, I32, I32, P])
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
             _build.ptr(out), _build.ptr(ws), B, H, Hkv, S, D,
             _build.strides(q[:, :, 0], k, v, out[:, :, 0]), 1.0 / (D ** 0.5),
-            _build.stream_of(q))
+            nsplit, chunk, _build.stream_of(q))
     _build.check(rc, "decode_attention")
     _build.counted(decode_attention_bhd)
     return out

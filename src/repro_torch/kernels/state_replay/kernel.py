@@ -14,7 +14,11 @@ and the final state: horizons ``h_fin`` (nd,), pools ``busy``/``last``
 DECIDES each row from the exact state the rows before it left (balancer
 nomination, warm/cold, the Alg. 1 budget, the policy's masked lexicographic
 minimum) and returns the policy-view codes — the chunk's decisions, which
-the placement core verifies with one replay pass.
+the placement core verifies with one replay pass. Its kernel is bound by
+that R-step chain; it keeps device memory off the chain (the rows' inputs
+are staged ahead into a shared-memory ring), crosses one block barrier a
+row, and scans the pools one row ahead, patching the scan with the one
+slot the row before changed (see the CUDA source).
 
 All float state is float64; replay and walk only add, multiply once for the
 budget (``c_max + alpha * s``, two rounded operations), take maxima, compare
@@ -224,10 +228,57 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
 state_replay.launches = 0
 
 
+WALK_STAGES = 3                # tiles of row inputs in the walk's ring
+WALK_RING_BUDGET = 96 * 1024   # bytes the ring may take
+WALK_MAX_WARPS = 24            # the walk's block
+# pool-scanning warps: all but the decider, the producer and the warps that
+# share the decider's SMSP (4, 8, ...), which only pass the barrier
+WALK_MAX_SCANNERS = WALK_MAX_WARPS - 2 - (WALK_MAX_WARPS - 1) // 4
+WALK_MAX_SPLIT = 2             # warps that share one pool's scan
+
+
+def walk_ring_rows(nd: int, nc: int) -> int:
+    """Rows of one tile of the walk's input ring (mirrors
+    ``walk_ring_rows``): the largest of 64, 32, ..., 2 whose
+    ``WALK_STAGES`` tiles of ``8 (1 + 5 nc + 2 nd) + 4`` bytes a row fit
+    ``WALK_RING_BUDGET``."""
+    row = 8 * (1 + 5 * nc + 2 * nd) + 4
+    tr = 64
+    while tr > 2 and WALK_STAGES * tr * row > WALK_RING_BUDGET:
+        tr //= 2
+    return tr
+
+
+def walk_split(nc: int) -> int:
+    """Warps that share each pool's scan (mirrors ``walk_split``): up to
+    ``WALK_MAX_SPLIT``, with at most ``WALK_MAX_SCANNERS`` scanning warps."""
+    return max(1, min(WALK_MAX_SPLIT, WALK_MAX_SCANNERS // nc)) if nc else 1
+
+
+def walk_warps(nc: int) -> int:
+    """Warps of the walk's block (mirrors ``walk_block_warps``): the
+    deciding warp 0, the producer warp 1, ``walk_split(nc)`` scanners per
+    config (at most ``WALK_MAX_SCANNERS``) on the warps that are not
+    multiples of 4, which keep the decider's SMSP to it."""
+    need = min(nc, WALK_MAX_SCANNERS) * walk_split(nc)
+    w = 2
+    while w - 2 - (w - 1) // 4 < need:
+        w += 1
+    return w
+
+
 def walk_smem_bytes(nd: int, nc: int, cap: int) -> int:
     """Shared memory of the walk's one block (mirrors
-    ``state_walk_smem_bytes``)."""
-    return 8 * (2 * nc * cap + nd + 1) + 4 * (3 * nc + 2)
+    ``state_walk_smem_bytes``): the (busy, last) pools, the edge horizons,
+    the input ring and two completions in float64; the (best, runner-up)
+    keys of each part of each pool's scan for two rows; then as 4-byte
+    words the ring's ``nom_fixed``, the slots beside those keys, the two
+    dispatches and the ring of decided codes."""
+    tr = walk_ring_rows(nd, nc)
+    parts = 4 * nc * walk_split(nc)
+    doubles = 2 * nc * cap + nd + WALK_STAGES * tr * (1 + 5 * nc + 2 * nd) + 2
+    words = 2 * WALK_STAGES * tr + parts + 4
+    return 8 * (doubles + parts) + 4 * words
 
 
 def state_walk_plain(nows, n: int, *, ecomp=None, elat=None, h0=None,
@@ -334,7 +385,9 @@ def state_walk(nows, n: int, *, ecomp=None, elat=None, h0=None,
     the MinCost deadline.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``state_walk_f64`` (one block, a warp per config pool) or raise."""
+    ``state_walk_f64`` (one block: a deciding warp; a warp staging the
+    rows' inputs into a shared-memory ring; up to two warps per config pool
+    scanning one row ahead) or raise."""
     kw = dict(ecomp=ecomp, elat=elat, h0=h0, nom_fixed=nom_fixed, lpw=lpw,
               latw=latw, latc=latc, costc=costc, occw=occw, occc=occc,
               busy0=busy0, last0=last0, cnt0=cnt0, t_idl=t_idl,

@@ -578,3 +578,206 @@ def test_mamba_lm_and_executor_on_card(cuda_device):
     r2 = ex.execute(64, 16.0)
     assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
     assert kernels.launch_counts()["ssd_scan"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------- K5, split-K
+def _decode_case(rng, B, H, Hkv, S, D, dtype, lengths, device, transposed=False):
+    """K5 on the card vs its plain version; returns the card's output."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+        decode_attention_plain,
+    )
+
+    q = torch.as_tensor(rng.normal(size=(B, H, 1, D)), dtype=dtype)
+    if transposed:  # the model's (B, S, Hkv, D) caches, viewed as (B, Hkv, S, D)
+        k, v = (torch.as_tensor(rng.normal(size=(B, S, Hkv, D)),
+                                dtype=dtype).transpose(1, 2) for _ in "kv")
+    else:
+        k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
+                for _ in "kv")
+    lens = torch.as_tensor(lengths, dtype=torch.int32)
+    want = decode_attention_plain(q, k, v, lens)
+    kd, vd = k.to(device), v.to(device)
+    if transposed:
+        assert not kd.is_contiguous() and kd.stride(-1) == 1
+    got = decode_attention_bhd(q.to(device), kd, vd, lens.to(device))
+    torch.cuda.synchronize()
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[dtype], (B, H, Hkv, S, D, lengths, err)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].any(), "a length of 0 gives 0"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_boundaries_on_card(cuda_device, rng, dtype):
+    """Lengths at k * chunk - 1, k * chunk and k * chunk + 1 of the split
+    rule's chunk, at B=4, Hkv=8, S=4096 (eight splits on an H100)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_splits,
+        sm_count,
+    )
+
+    B, H, Hkv, S, D = 4, 32, 8, 4096, 64
+    nsplit, chunk = decode_splits(B, Hkv, H // Hkv, S, sm_count(cuda_device))
+    assert nsplit > 1
+    for kk in (1, 2, nsplit - 1):
+        lens = [kk * chunk - 1, kk * chunk, kk * chunk + 1, S + 9]
+        _decode_case(rng, B, H, Hkv, S, D, dtype, lens, cuda_device)
+    _decode_case(rng, B, H, Hkv, S, D, dtype, [0, 1, S, S - 1], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_decode_attention_groups_and_head_dims_on_card(cuda_device, rng,
+                                                       dtype, G):
+    """Every head dim of the port's configs and the edges of the padded
+    widths, for each GQA group size; transposed cache views, a length of 0
+    and one above S, one split (S = 48) and several (S = 700)."""
+    for D in (16, 64, 80, 128, 256):
+        for S in (48, 700):
+            _decode_case(rng, 3, 2 * G, 2, S, D, dtype, [S + 3, 0, S // 2 + 1],
+                         cuda_device, transposed=D % 32 == 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 4096])
+def test_decode_attention_graph_replay_on_card(cuda_device, rng, S):
+    """A bf16 decode captured in a CUDA graph, replayed while ``lengths``
+    changes on the device, equals the eager call at each length (the split
+    rule reads no lengths)."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_bhd
+
+    B, H, Hkv, D = 4, 32, 8, 64
+    bf = torch.bfloat16
+    q = torch.as_tensor(rng.normal(size=(B, H, 1, D)), dtype=bf).to(cuda_device)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=bf)
+            .to(cuda_device) for _ in "kv")
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(q)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_bhd(q, k, v, lens, out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        decode_attention_bhd(q, k, v, lens, out=out)
+    for new in ([S + 1, 1, S // 2, 0], [3, S, S - 1, 17], [S, S, S, S]):
+        lens.copy_(torch.as_tensor(new, dtype=torch.int32))
+        g.replay()
+        eager = decode_attention_bhd(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), new
+
+
+# ------------------------------------------------------------ the walk
+def walk_inputs(rng, R, nd, nc, cap, lpw, fill, ties=False):
+    """Random walk inputs as CPU tensors: the replay inputs plus latency and
+    cost columns; ``ties`` rounds arrivals and occupancies to coarse grids so
+    that completions (and so `last`) repeat."""
+    nows, _, kw = replay_inputs(rng, R, nd, nc, cap, lpw, fill)
+    if ties:
+        nows = np.round(nows / 500.0) * 500.0
+        if nc:
+            kw["occw"] = np.round(kw["occw"] / 100.0) * 100.0
+            kw["occc"] = kw["occw"] + 1000.0
+    tn, _, tkw = to_torch(nows, np.zeros(R, np.int64), kw)
+    tkw.pop("edge_col")
+    if lpw or not nd:
+        tkw.pop("nom_fixed", None)
+    if nd:
+        tkw["elat"] = torch.as_tensor(rng.uniform(500.0, 4000.0, size=(R, nd)))
+    if nc:
+        latw = rng.uniform(500.0, 3000.0, size=(R, nc))
+        tkw.update(latw=torch.as_tensor(latw),
+                   latc=torch.as_tensor(latw + rng.uniform(0.0, 3000.0,
+                                                           size=(R, nc))),
+                   costc=torch.as_tensor(rng.choice([2e-6, 4e-6, 6e-6],
+                                                    size=(R, nc))))
+    tkw.update(s0=torch.tensor(0.0, dtype=torch.float64), c_max=3e-6,
+               alpha=0.05, deadline=2500.0)
+    return tn, tkw
+
+
+def _walk_case(tn, n, tkw, device, minlat):
+    from repro_torch.kernels.state_replay.kernel import (
+        state_walk,
+        state_walk_plain,
+    )
+
+    args = dict(tkw, minlat=minlat)
+    want = state_walk_plain(tn, n, **args)
+    got = state_walk(tn.to(device), n,
+                     **{k: v.to(device) if torch.is_tensor(v) else v
+                        for k, v in args.items()})
+    assert torch.equal(got[0].cpu(), want[0]), "codes"
+    assert torch.equal(got[1].cpu(), want[1]), "overflow flags"
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minlat", [True, False])
+@pytest.mark.parametrize("case", ["lpw", "fixed", "no_edge", "nc1", "nc8",
+                                  "overflow", "ties"])
+def test_walk_cases_on_card(cuda_device, rng, case, minlat):
+    """The walk bit-equal to its plain version: least-predicted-wait and
+    fixed nominations, no edge fleet (MinLatency's every-target fallback),
+    one and eight configs, pools that overflow (flags equal), equal
+    completions (ties in `last`), and n < R pad rows, under both
+    policies."""
+    R, nd, nc, cap, lpw, fill, ties = 1500, 3, 4, 128, True, 30, False
+    if case == "fixed":
+        lpw = False
+    elif case == "no_edge":
+        nd = 0
+    elif case == "nc1":
+        nc = 1
+    elif case == "nc8":
+        nc, cap = 8, 64
+    elif case == "overflow":
+        cap, fill = 16, 14
+    elif case == "ties":
+        ties = True
+    tn, tkw = walk_inputs(rng, R, nd, nc, cap, lpw, fill, ties)
+    code, ovf = _walk_case(tn, R - 5, tkw, cuda_device, minlat)
+    assert (code[R - 5:] == -1).all()
+    if case == "overflow":
+        assert ovf.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["1", "tile-1", "tile", "tile+1", "65536"])
+def test_walk_row_counts_on_card(cuda_device, rng, rows):
+    """Row counts around the input ring's tile (``walk_ring_rows``), and a
+    whole 65,536-row chunk, bit-equal to the plain version."""
+    from repro_torch.kernels.state_replay.kernel import walk_ring_rows
+
+    nd, nc = 3, 4
+    tile = walk_ring_rows(nd, nc)
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "65536": 65536}[rows]
+    tn, tkw = walk_inputs(rng, n, nd, nc, 512, True, 20)
+    _walk_case(tn, n, tkw, cuda_device, True)
+
+
+@pytest.mark.cuda
+def test_walk_chain_floor_on_card(cuda_device):
+    """The chain-floor probe runs its R steps: thread 0's chain ends at
+    R x inc, every warp folds each step's value."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.state_replay.kernel import walk_warps
+
+    warps, R = walk_warps(4), 1000
+    out = torch.empty(1 + warps, dtype=torch.float64, device=cuda_device)
+    fn = _build.function("state_replay", "state_walk_chain_floor",
+                         [_build.P, _build.F64, _build.I32, _build.I32,
+                          _build.P])
+    _build.check(fn(_build.ptr(out), 0.5, R, warps, _build.stream_of(out)),
+                 "state_walk_chain_floor")
+    torch.cuda.synchronize()
+    assert out[0].item() == 0.5 * R
+    assert (out[1:] == 0.5 * R * (R + 1) / 2).all()

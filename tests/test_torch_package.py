@@ -92,18 +92,19 @@ def test_import_needs_no_triton_and_no_cuda():
                                   "decode_attention", "ssd_scan"])
 def test_nvcc_flags_per_source(name, monkeypatch):
     """Every source keeps -fmad=false (its parity with the plain version
-    rests on no contracted multiply-add) except flash_attention, whose
-    softmax wants its FMAs; the library's hash covers the flags, so a
+    rests on no contracted multiply-add) except the two attention kernels,
+    whose softmax wants its FMAs; the library's hash covers the flags, so a
     changed flag rebuilds."""
     from repro_torch.kernels import _build
 
+    fmad = ("flash_attention", "decode_attention")
     assert name in _build.SOURCES
     flags = _build.flags(name)
-    assert ("-fmad=false" in flags) == (name != "flash_attention")
+    assert ("-fmad=false" in flags) == (name not in fmad)
     assert "arch=compute_90a,code=sm_90a" in flags
     before = _build.lib_path(name)
-    monkeypatch.setattr(_build, "FMAD_SOURCES", () if name ==
-                        "flash_attention" else (name,))
+    monkeypatch.setattr(_build, "FMAD_SOURCES", () if name in fmad
+                        else (name,))
     assert _build.flags(name) != flags
     assert _build.lib_path(name) != before
 
