@@ -30,12 +30,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    more on the same chunk under MinCost (``min_cost_ms``), its row also
    recording the chain floor (``state_walk_chain_floor``: R steps of one
    block barrier and a float64 handed from one thread to every warp,
-   ``chain_floor_ms``);
+   ``chain_floor_ms``) and the launch's warps, ring rows, scan split and
+   shared memory as the library computes them (``state_walk_layout``),
+   which the host's mirror of them must equal;
    flash attention (K4) at llama3.2-1b's prefill shape (q (1, 32, 32, 64),
    k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and
    flash decode (K5) at its decode shape (k/v (1, 8, 32, 64), length 33) and
    at B=4, S=4096 with ragged lengths and one length above S, within 5e-5 in
-   float32 and 3e-2 in bf16, its row recording the split count at each
+   float32 and 3e-2 in bf16, in bf16 also each (batch, head) row within
+   2**-6 of its largest |output| (``row_err``; two planted faults, a dropped
+   split and one masked slot let through, must exceed that limit:
+   ``fault_row_err``), its row recording the split count at each
    shape (``nsplit``, ``chunk``); the SSD scan (K6) in bf16 and float32 on the
    inputs mamba2-780m's first layer gives it at full width, at the serving
    prefill (x (1, 48, 32, 64), B/C (1, 32, 128), one chunk), at S=300 (3
@@ -114,6 +119,12 @@ FLOAT_TOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 ATTN_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
+# K5 in bf16 is also held per (batch, head) row: the row's largest error
+# within DEC_ROW_TOL of its largest |output| (2 to 4 bf16 ulps of it). A
+# decode output has std sqrt(e / length) for N(0, 1) inputs at D = 64, near
+# 0.03 at long caches, where 3e-2 alone is about one typical output; the
+# planted faults in fd_case show that this limit sees a dropped split
+DEC_ROW_TOL = 2.0 ** -6
 # K6 vs its plain version: float32 y within 1e-4; bf16 y within 3e-2 of
 # max(1, |y|) (an absolute bound up to |y| = 1, a relative one above: the
 # model's y reaches 27-52, where one bf16 ulp exceeds 3e-2); the float32
@@ -443,8 +454,10 @@ def phase_kernels(ctx, dev) -> list[dict]:
         state_replay_plain,
         state_walk,
         state_walk_plain,
+        walk_launch_layout,
         walk_ring_rows,
         walk_smem_bytes,
+        walk_split,
         walk_warps,
     )
 
@@ -623,6 +636,13 @@ def phase_kernels(ctx, dev) -> list[dict]:
     pools = 2 * nc * cap * 16 + nc * 8  # seed in, final pools out
     shape = (f"R={N} nc={nc} nd={nd} cap={cap} pools_end={cnt.tolist()} "
              f"codes={codes}")
+    # the launch as the library makes it; the host's mirror must agree
+    warps, ring_rows, split, smem = walk_launch_layout(nd, nc, cap)
+    mirror = (walk_warps(nc), walk_ring_rows(nd, nc), walk_split(nc),
+              walk_smem_bytes(nd, nc, cap))
+    if mirror != (warps, ring_rows, split, smem):
+        fail(f"the walk's host layout {mirror} differs from the library's "
+             f"{(warps, ring_rows, split, smem)}")
     rows.append(row(
         "state_walk", "src/repro_torch/csrc/state_replay.cu",
         "src/repro/core/jax_core.py:770",
@@ -630,9 +650,8 @@ def phase_kernels(ctx, dev) -> list[dict]:
         0.0, N * (8 + 2 * nd * 8 + 5 * nc * 8 + 4) + pools,
         N * (live * 3 + nd * 4 + (nc + 1) * 6), "float64", shape=shape,
         plain_device="cpu",
-        chain_floor_ms=walk_chain_floor_ms(N, walk_warps(nc), dev),
-        warps=walk_warps(nc), ring_rows=walk_ring_rows(nd, nc),
-        smem_bytes=walk_smem_bytes(nd, nc, cap),
+        chain_floor_ms=walk_chain_floor_ms(N, warps, dev),
+        warps=warps, ring_rows=ring_rows, split=split, smem_bytes=smem,
         min_cost_ms=cuda_ms(lambda: state_walk(nows, N, **cost_in), 3),
         min_cost_plain_ms=walk_cost_plain_ms,
         min_cost_codes=np.bincount(cost_codes.cpu().numpy(),
@@ -705,6 +724,62 @@ def fa_case(shape, dtype, dev, causal, window, reps):
         ops=4.0 * B * H * pairs * D, dtype=name)
 
 
+def row_rel_err(got, want) -> float:
+    """The largest, over (batch, head) rows, of a row's max |got - want|
+    over its max |want| (inf where a zero row of ``want`` is not matched
+    exactly)."""
+    import torch
+
+    g, w = (t.double().cpu().reshape(-1, t.shape[-1]) for t in (got, want))
+    err, scale = (g - w).abs().amax(-1), w.abs().amax(-1)
+    ratio = torch.where(scale > 0, err / scale.clamp_min(1e-300),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def masked_decode(q, k, v, valid):
+    """The plain decode over the slots ``valid`` (B, S) marks, in q's
+    dtype: ``decode_attention_plain``'s math with a mask it cannot take
+    from lengths, to plant a fault."""
+    import torch
+
+    B, H, _, D = q.shape
+    Hkv = k.shape[1]
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bkgd,bksd->bkgs", qf, k.float()) / D ** 0.5
+    m = valid[:, None, None, :]
+    s = torch.where(m, s, -2.0e38)
+    p = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.float()) \
+        / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, H, 1, D).to(q.dtype)
+
+
+def fd_faults(q, k, v, lens, got, nsplit, chunk) -> dict:
+    """The bf16 row limit against two planted faults, read on the card:
+    the output of a kernel that drops one split (the second; the last
+    16-slot tile when the cache is one split) or lets one masked slot
+    through (each length + 1) is computed plainly on the card and held
+    against the kernel's own output. Fails if the limit would pass
+    either."""
+    import torch
+
+    S = k.shape[2]
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = pos < lens.long()[:, None]
+    lo, hi = (chunk, 2 * chunk) if nsplit > 1 else (S - 16, S)
+    faults = {"drop_split": valid & ((pos < lo) | (pos >= hi))}
+    if bool((lens < S).any()):
+        faults["extra_slot"] = pos < lens.long()[:, None] + 1
+    out = {}
+    for tag, mask in faults.items():
+        out[tag] = row_rel_err(masked_decode(q, k, v, mask), got)
+        if out[tag] <= DEC_ROW_TOL:
+            fail(f"K5's bf16 row limit {DEC_ROW_TOL} would pass a kernel "
+                 f"with the planted fault {tag} (row error {out[tag]})")
+    return out
+
+
 def fd_case(shape, dtype, dev, lengths, reps):
     """K5 vs its plain version (and SDPA's time) at one shape."""
     import torch
@@ -723,11 +798,11 @@ def fd_case(shape, dtype, dev, lengths, reps):
     got = decode_attention_bhd(q, k, v, lens)
     want = decode_attention_plain(q, k, v, lens)
     torch.cuda.synchronize()
-    err = max_err(got, want)
+    err, rel = max_err(got, want), row_rel_err(got, want)
     name = str(dtype).split(".")[-1]
-    if err > ATTN_TOL[name]:
+    if err > ATTN_TOL[name] or (name == "bfloat16" and rel > DEC_ROW_TOL):
         fail(f"K5 {shape} {name} lengths={lengths} differs from its plain "
-             f"version by {err}")
+             f"version by {err} (row error {rel})")
     valid = torch.arange(S, device=dev)[None, :] < lens.long()[:, None]
     mask = valid[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -736,8 +811,10 @@ def fd_case(shape, dtype, dev, lengths, reps):
     esz = q.element_size()
     kernel = lambda: decode_attention_bhd(q, k, v, lens)  # noqa: E731
     nsplit, chunk = decode_splits(B, Hkv, H // Hkv, S, sm_count(q.device))
+    faults = fd_faults(q, k, v, lens, got, nsplit, chunk) \
+        if name == "bfloat16" else {}
     return dict(
-        nsplit=nsplit, chunk=chunk,
+        nsplit=nsplit, chunk=chunk, row_err=rel, faults=faults,
         ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
         plain_ms=graph_ms(lambda: decode_attention_plain(q, k, v, lens),
                           max(reps // 10, 2)),
@@ -781,6 +858,10 @@ def phase_attention(dev) -> list[dict]:
              (("f32", fd32), ("b4_s4096", fdb))
              for key in ("ms", "plain_ms", "library_ms", "err")}
     extra["nsplit"], extra["chunk"] = fd["nsplit"], fd["chunk"]
+    extra["row_tol"] = DEC_ROW_TOL
+    for tag, c in (("", fd), ("b4_s4096_", fdb)):
+        extra[f"{tag}row_err"] = c["row_err"]
+        extra[f"{tag}fault_row_err"] = c["faults"]
     extra["b4_s4096_nsplit"] = fdb["nsplit"]
     extra["b4_s4096_chunk"] = fdb["chunk"]
     extra["b4_s4096_eager_ms"] = fdb["eager_ms"]

@@ -221,7 +221,8 @@ __global__ void state_replay_kernel(
 //     inputs (nows, the five (R, nc) latency/cost/occupancy columns,
 //     elat/ecomp, nom_fixed) from a shared-memory ring that warp 1, the
 //     producer, fills with cp.async tiles of TR rows, WALK_STAGES tiles deep
-//     (walk_ring_rows, a compile-time tile), well ahead of the row being
+//     (TR = walk_ring_rows, a power of two read by shift and mask), well
+//     ahead of the row being
 //     decided, and writes its codes to shared memory, which the producer
 //     copies out a tile at a time. Warp w runs on SMSP w % 4: warps 4, 8, ...
 //     only pass the barrier, so the decider has its SMSP to itself;
@@ -269,8 +270,9 @@ __host__ __device__ inline int walk_ring_rows(int nd, int nc) {
   return tr;
 }
 
-// scanner groups (one per config, two configs a group above 30) and the
-// warps that split each group's pool scan (up to 4, 30 scanner warps at most)
+// scanner groups (one per config, two configs a group above
+// WALK_MAX_SCANNERS = 17) and the warps that split each group's pool scan
+// (up to WALK_MAX_SPLIT = 2, 17 scanner warps at most)
 __host__ __device__ inline int walk_scanners(int nc) {
   return nc < WALK_MAX_SCANNERS ? nc : WALK_MAX_SCANNERS;
 }
@@ -327,7 +329,7 @@ __device__ __forceinline__ void warp_first_max(unsigned long long key, unsigned 
   K = ((unsigned long long)H << 32) | L;
 }
 
-template <int TR, int NCM>
+template <int NCM>
 __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
     const double* __restrict__ nows, int R, int n, int nd, int lpw,
     const double* __restrict__ ecomp, const double* __restrict__ elat,
@@ -342,6 +344,9 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
   extern __shared__ __align__(16) double sm[];
   const int tid = threadIdx.x, lane = tid % kWarp, w = tid / kWarp;
   const int NS = walk_scanners(nc), S = walk_split(nc);
+  // rows of a ring tile, a power of two: row r is entry r & (TR - 1) of
+  // tile r >> TRS
+  const int TR = walk_ring_rows(nd, nc), TRS = __ffs(TR) - 1;
   const int SD = TR * (1 + 5 * nc + 2 * nd);  // doubles of one ring stage
   double* busy = sm;                          // (nc, cap)
   double* last = busy + (size_t)nc * cap;     // (nc, cap)
@@ -357,7 +362,7 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
 
   // a ring stage: now[TR], latw, latc, costc, occw, occc [TR * nc] each,
   // elat, ecomp [TR * nd] each
-  auto stage_of = [&](int r) { return ring + (size_t)((r / TR) % WALK_STAGES) * SD; };
+  auto stage_of = [&](int r) { return ring + (size_t)((r >> TRS) % WALK_STAGES) * SD; };
   auto issue = [&](int t) {  // producer warp: tile t's rows into its stage
     const int r0 = t * TR, rows = min(r0 + TR, n) - r0;
     if (rows <= 0) return;
@@ -417,7 +422,7 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
       }
       return;
     }
-    const double now = stage_of(r)[r % TR];
+    const double now = stage_of(r)[r & (TR - 1)];
     const double* b = busy + (size_t)c * cap;
     const double* l = last + (size_t)c * cap;
     unsigned long long k1 = 0, k2 = 0;
@@ -479,7 +484,7 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
   for (int k = 0; k < n; ++k) {
     if (w == 0) {
       const double* sb = stage_of(k);
-      const int off = k % TR;
+      const int off = k & (TR - 1);
       const double now = sb[off];
       const double* rlatw = sb + TR + (size_t)off * nc;
       const double* rlatc = rlatw + (size_t)TR * nc;
@@ -507,7 +512,7 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
             wait = we < wait ? we : wait;
           }
         } else {
-          d = ring_nf[((k / TR) % WALK_STAGES) * TR + off];
+          d = ring_nf[((k >> TRS) % WALK_STAGES) * TR + off];
           wait = fmax(__dsub_rn(h[d], now), 0.0);
         }
       }
@@ -622,16 +627,16 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
         }
       }
       if (lane == 0) {
-        s_code[((k / TR) % WALK_STAGES) * TR + off] = best;
+        s_code[((k >> TRS) % WALK_STAGES) * TR + off] = best;
         d_cj[buf * 2] = pc;
         d_cj[buf * 2 + 1] = pj;
         d_comp[buf] = pcomp;
       }
     } else if (w == 1) {
-      if (k % TR == 0) {  // tile t's rows are being decided: tile t + 2 in flight
-        issue(k / TR + WALK_STAGES - 1);
+      if ((k & (TR - 1)) == 0) {  // tile t's rows are being decided: tile t + 2 in flight
+        issue((k >> TRS) + WALK_STAGES - 1);
         cp_commit();
-        if (k > 0) flush(k / TR - 1);  // tile t - 1 is decided
+        if (k > 0) flush((k >> TRS) - 1);  // tile t - 1 is decided
         cp_wait<WALK_STAGES - 2>();    // tile t + 1 has landed
       }
     } else if (scanner) {
@@ -659,31 +664,18 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32) state_walk_kernel(
     __syncthreads();
   }
   if (w == 1) {
-    if (n > 0) flush((n - 1) / TR);
+    if (n > 0) flush((n - 1) >> TRS);
     cp_wait<0>();
   }
   if (tid == 0)
     for (int c = 0; c < nc; ++c) ovf_out[c] = (ovf >> c) & 1u;
 }
 
-using WalkKernel = decltype(&state_walk_kernel<64, 4>);
+using WalkKernel = decltype(&state_walk_kernel<4>);
 
-// the instantiation for the ring tile walk_ring_rows(nd, nc) and the least
-// of 4, 8, 32 configs that covers nc
-template <int NCM>
-WalkKernel walk_kernel_for(int tr) {
-  switch (tr) {
-    case 64: return state_walk_kernel<64, NCM>;
-    case 32: return state_walk_kernel<32, NCM>;
-    case 16: return state_walk_kernel<16, NCM>;
-    case 8: return state_walk_kernel<8, NCM>;
-    case 4: return state_walk_kernel<4, NCM>;
-    default: return state_walk_kernel<2, NCM>;
-  }
-}
-
-WalkKernel walk_kernel(int tr, int nc) {
-  return nc <= 4 ? walk_kernel_for<4>(tr) : (nc <= 8 ? walk_kernel_for<8>(tr) : walk_kernel_for<32>(tr));
+// the instantiation for the least of 4, 8, 32 configs that covers nc
+WalkKernel walk_kernel(int nc) {
+  return nc <= 4 ? state_walk_kernel<4> : (nc <= 8 ? state_walk_kernel<8> : state_walk_kernel<32>);
 }
 
 __global__ void walk_chain_floor_kernel(double inc, int R, double* out) {
@@ -725,7 +717,7 @@ int state_walk_f64(const double* nows, int R, int n, int nd, int lpw, const doub
   if (R == 0) return 0;
   if (nc > 32) return (int)cudaErrorInvalidValue;  // the decider's config masks
   const long long bytes = state_walk_smem_bytes(nd, nc, cap);
-  const WalkKernel kernel = walk_kernel(walk_ring_rows(nd, nc), nc);
+  const WalkKernel kernel = walk_kernel(nc);
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -736,6 +728,17 @@ int state_walk_f64(const double* nows, int R, int n, int nd, int lpw, const doub
       nows, R, n, nd, lpw, ecomp, elat, h0, nom_fixed, nc, cap, t_idl, latw, latc, costc,
       occw, occc, busy0, last0, cnt0, minlat, c_max, alpha, s0, deadline, code, ovf);
   return (int)cudaGetLastError();
+}
+
+// The walk's launch as state_walk_f64 makes it, for the host's mirror of it
+// to be held against: out[0] warps of the block, out[1] rows of a ring tile,
+// out[2] warps scanning each pool, out[3] bytes of shared memory.
+int state_walk_layout(int nd, int nc, int cap, long long* out) {
+  out[0] = walk_block_warps(nc);
+  out[1] = walk_ring_rows(nd, nc);
+  out[2] = walk_split(nc);
+  out[3] = state_walk_smem_bytes(nd, nc, cap);
+  return 0;
 }
 
 // The walk's chain floor: one block of `warps` warps through R steps of one

@@ -27,6 +27,7 @@ and gather, so kernels and plain versions agree bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -279,6 +280,19 @@ def walk_smem_bytes(nd: int, nc: int, cap: int) -> int:
     doubles = 2 * nc * cap + nd + WALK_STAGES * tr * (1 + 5 * nc + 2 * nd) + 2
     words = 2 * WALK_STAGES * tr + parts + 4
     return 8 * (doubles + parts) + 4 * words
+
+
+def walk_launch_layout(nd: int, nc: int, cap: int) -> tuple[int, int, int, int]:
+    """``(warps, ring_rows, split, smem_bytes)`` of the walk's launch as the
+    built library makes it (``state_walk_layout``, from the same C helpers
+    as ``state_walk_f64``). The mirrors above size the launch and the pool
+    cap on the host; ``chip_smoke.py`` and the card tests hold them to
+    this."""
+    out = (ctypes.c_longlong * 4)()
+    fn = _build.function("state_replay", "state_walk_layout",
+                         [_build.I32, _build.I32, _build.I32, _build.P])
+    _build.check(fn(nd, nc, cap, out), "state_walk_layout")
+    return tuple(int(x) for x in out)
 
 
 def state_walk_plain(nows, n: int, *, ecomp=None, elat=None, h0=None,

@@ -194,6 +194,19 @@ def test_torch_serve_on_card_matches_cpu(cuda_device):
 
 
 ATTN_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+# K5 in bf16, per (batch, head) row: the row's largest error within
+# DEC_ROW_TOL of its largest |output|, as chip_smoke.py holds it
+DEC_ROW_TOL = 2.0 ** -6
+
+
+def _row_rel_err(got, want):
+    """Largest over (batch, head) rows of max |got - want| / max |want|
+    (inf where a zero row of ``want`` is not matched exactly)."""
+    g, w = (t.double().cpu().reshape(-1, t.shape[-1]) for t in (got, want))
+    err, scale = (g - w).abs().amax(-1), w.abs().amax(-1)
+    ratio = torch.where(scale > 0, err / scale.clamp_min(1e-300),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return ratio.max().item()
 
 
 @pytest.mark.cuda
@@ -335,6 +348,9 @@ def test_decode_attention_on_card(cuda_device, rng, dtype):
         torch.cuda.synchronize()
         err = (got.cpu().float() - want.float()).abs().max().item()
         assert err <= ATTN_TOL[dtype], (B, S, H, Hkv, D, err)
+        if dtype == torch.bfloat16:
+            rel = _row_rel_err(got, want)
+            assert rel <= DEC_ROW_TOL, (B, S, H, Hkv, D, rel)
         if B > 2:
             assert not got[-1].any(), "a length of 0 gives 0"
         ks, vs = (t.transpose(1, 2).contiguous().to(cuda_device)
@@ -604,6 +620,9 @@ def _decode_case(rng, B, H, Hkv, S, D, dtype, lengths, device, transposed=False)
     torch.cuda.synchronize()
     err = (got.cpu().float() - want.float()).abs().max().item()
     assert err <= ATTN_TOL[dtype], (B, H, Hkv, S, D, lengths, err)
+    if dtype == torch.bfloat16:
+        rel = _row_rel_err(got, want)
+        assert rel <= DEC_ROW_TOL, (B, H, Hkv, S, D, lengths, rel)
     for b, n in enumerate(lengths):
         if n == 0:
             assert not got[b].any(), "a length of 0 gives 0"
@@ -614,7 +633,8 @@ def _decode_case(rng, B, H, Hkv, S, D, dtype, lengths, device, transposed=False)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_split_boundaries_on_card(cuda_device, rng, dtype):
     """Lengths at k * chunk - 1, k * chunk and k * chunk + 1 of the split
-    rule's chunk, at B=4, Hkv=8, S=4096 (eight splits on an H100)."""
+    rule's chunk, at B=4, Hkv=8, S=4096 (16 splits of 256 slots on an
+    H100)."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_splits,
         sm_count,
@@ -627,6 +647,51 @@ def test_decode_attention_split_boundaries_on_card(cuda_device, rng, dtype):
         lens = [kk * chunk - 1, kk * chunk, kk * chunk + 1, S + 9]
         _decode_case(rng, B, H, Hkv, S, D, dtype, lens, cuda_device)
     _decode_case(rng, B, H, Hkv, S, D, dtype, [0, 1, S, S - 1], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["drop_split", "extra_slot"])
+def test_decode_attention_bf16_row_limit_sees_planted_faults_on_card(
+        cuda_device, rng, fault):
+    """The bf16 row limit is tight enough to fail a kernel that drops one
+    split of the slot axis or lets one masked slot through at a 64-slot
+    tile edge: each fault's output, computed plainly on the card, lies
+    beyond the limit from the kernel's, which lies within it of the plain
+    version (B=4, Hkv=8, S=4096)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+        decode_attention_plain,
+        decode_splits,
+        sm_count,
+    )
+
+    B, H, Hkv, S, D = 4, 32, 8, 4096, 64
+    nsplit, chunk = decode_splits(B, Hkv, H // Hkv, S, sm_count(cuda_device))
+    assert nsplit > 1
+    q = torch.as_tensor(rng.normal(size=(B, H, 1, D)),
+                        dtype=torch.bfloat16).to(cuda_device)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, S, D)),
+                            dtype=torch.bfloat16).to(cuda_device) for _ in "kv")
+    lens = torch.tensor([2 * chunk + 64, 3 * chunk, S - 64, 64],
+                        dtype=torch.int32, device=cuda_device)
+    got = decode_attention_bhd(q, k, v, lens)
+    assert _row_rel_err(got, decode_attention_plain(q, k, v, lens)) \
+        <= DEC_ROW_TOL
+    pos = torch.arange(S, device=cuda_device)[None, :]
+    valid = pos < lens.long()[:, None]
+    if fault == "drop_split":
+        valid &= (pos < chunk) | (pos >= 2 * chunk)
+    else:
+        valid = pos < lens.long()[:, None] + 1
+    Gq = H // Hkv
+    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, Hkv, Gq, D),
+                     k.float()) / D ** 0.5
+    m = valid[:, None, None, :]
+    s = torch.where(m, s, -2.0e38)
+    p = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    bad = (torch.einsum("bkgs,bksd->bkgd", p, v.float())
+           / p.sum(-1, keepdim=True)).reshape(B, H, 1, D).bfloat16()
+    assert _row_rel_err(bad, got) > DEC_ROW_TOL
 
 
 @pytest.mark.cuda
@@ -781,3 +846,27 @@ def test_walk_chain_floor_on_card(cuda_device):
     torch.cuda.synchronize()
     assert out[0].item() == 0.5 * R
     assert (out[1:] == 0.5 * R * (R + 1) / 2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd", [0, 3, 200])
+def test_walk_layout_mirrors_the_library_on_card(cuda_device, nd):
+    """The host's mirror of the walk's launch (warps, ring rows, scan split,
+    shared memory), which sizes the pools and ``max_pool_cap``, equals what
+    the built library computes for the launch, at every config count up to
+    the limit of 32 and at the CPU layout tests' shapes."""
+    from repro_torch.kernels.state_replay.kernel import (
+        walk_launch_layout,
+        walk_ring_rows,
+        walk_smem_bytes,
+        walk_split,
+        walk_warps,
+    )
+
+    shapes = [(nd, nc, cap) for nc in range(33) for cap in (8, 512, 2048)]
+    shapes += [(3, 4, 2048), (0, 4, 512), (3, 0, 0), (3, 8, 1024),
+               (3, 9, 512), (3, 32, 8), (200, 4, 64)]
+    for d, nc, cap in shapes:
+        mirror = (walk_warps(nc), walk_ring_rows(d, nc), walk_split(nc),
+                  walk_smem_bytes(d, nc, cap))
+        assert walk_launch_layout(d, nc, cap) == mirror, (d, nc, cap)
