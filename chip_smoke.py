@@ -25,7 +25,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    library (``chain_floor_ms``, the exact fold's floor) and the RG-LRU
    shape's byte bound; the state replay bit-equal
    on a 65,536-row chunk of the stream (its plain version, a per-row loop,
-   runs on CPU copies of the same inputs), and so the sequential decision
+   runs on CPU copies of the same inputs) under the walk's MinLatency codes
+   and again under its MinCost codes (``min_cost_ms``), its row recording
+   each scan split's time (``split_ms``), the chain floor
+   (``state_replay_chain_floor``: one named-barrier hand-off of a float64
+   per dispatch row of the largest config, ``chain_floor_ms``) and the
+   launch's warps, segment rows, scan split and shared memory as the
+   library computes them (``state_replay_layout``), which the host's mirror
+   must equal; and so the sequential decision
    walk, whose codes are the replay's input there as on the main path, once
    more on the same chunk under MinCost (``min_cost_ms``), its row also
    recording the chain floor (``state_walk_chain_floor``: R steps of one
@@ -46,7 +53,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill (x (1, 48, 32, 64), B/C (1, 32, 128), one chunk), at S=300 (3
    chunks of 128, the last padded) and at b=2, S=4096 (32 chunks), y within
    1e-4 in float32 and within 3e-2 of max(1, |y|) in bf16, the float32
-   state within 1e-4. Kernel, plain and library times come from CUDA events
+   state within 1e-4, and at S=300 in float32 also against the literal
+   oracle ``ssd_ref`` within the CPU plain version's own gap to it plus
+   1e-4; each shape records its route (one launch, or the three
+   chunk-parallel ones) and its bound, the bf16 one at the bf16 tensor-core
+   rate for C B^T and the float32 rate for the rest. Kernel, plain and
+   library times come from CUDA events
    (the plain CPU runs of walk and replay from the host clock); the
    attention and SSD rows time each call from a CUDA graph of many calls
    (device time, without the host's launch overhead, which ``eager_ms``
@@ -87,7 +99,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whose decode graphs replay K5 alone, ``n_layers`` launches per step; K6
    for mamba2-780m, ``n_layers`` launches per prefill, whose decode graphs
    replay no kernel of the port;
-6. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
+6. launch K4 in float32 100 times at its card test's first case,
+   (1, 32, 32, 8, 64) causal, after the live serves in this process: every
+   output must have the same bits (recorded in K4's row with each side's
+   distance from a float64 softmax);
+7. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
    line (K1-K6, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -198,6 +214,7 @@ def main() -> int:
     timed("model ssm", phase_model, dev, SSM_ARCH, SSM_LONG_PROMPT)
     lives = [timed("live", phase_live, dev, ARCH),
              timed("live ssm", phase_live, dev, SSM_ARCH)]
+    repeat = timed("k4 f32 repeat", fa_f32_repeat, dev)
     launches = dict(serve["launches"])
     replayed = {}
     for live in lives:
@@ -209,6 +226,8 @@ def main() -> int:
             row["tensor_core_instructions"] = sass[row["name"]]
         row["launches"] = launches[row["name"]]
         row["graph_replayed"] = replayed.get(row["name"], 0)
+        if row["name"] == "flash_attention":
+            row.update(repeat)
         if row["launches"] <= 0:
             fail(f"{row['name']} was never launched on its main path")
     log(f"build seconds: {json.dumps(build)}")
@@ -403,6 +422,31 @@ def walk_chain_floor_ms(n: int, warps: int, dev) -> float:
     return ms
 
 
+def replay_chain_floor_ms(steps: int, warps: int, dev) -> float:
+    """Time of ``steps`` hand-offs of a float64 from one thread to every
+    warp of a ``warps``-warp group, one named barrier each
+    (``state_replay_chain_floor``): the floor of the replay's chain of a
+    config's dispatch rows."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = torch.empty(1 + warps, dtype=torch.float64, device=dev)
+    fn = _build.function("state_replay", "state_replay_chain_floor",
+                         [_build.P, _build.F64, _build.I32, _build.I32,
+                          _build.P])
+
+    def run():
+        _build.check(fn(_build.ptr(out), 1e-9, steps, warps,
+                        _build.stream_of(out)), "state_replay_chain_floor")
+
+    ms = cuda_ms(run, 5)
+    if abs(float(out[0]) - steps * 1e-9) > 1e-6 * steps * 1e-9:
+        fail(f"the replay's chain floor ends at {float(out[0])}, not "
+             f"{steps} x 1e-9")
+    return ms
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -417,9 +461,10 @@ def max_err(a, b) -> float:
 
 
 def row(name, source, replaces, ms, plain_ms, err, nbytes, ops, dtype,
-        library_ms=None, **extra) -> dict:
-    """One kernel's line; ``dtype`` names the peak rate of its bound."""
-    b_ms, b_by = bound(nbytes, ops, dtype)
+        library_ms=None, bound_at=None, **extra) -> dict:
+    """One kernel's line; ``dtype`` names the peak rate of its bound, unless
+    ``bound_at`` gives the (ms, "bytes" or "operations") bound itself."""
+    b_ms, b_by = bound_at or bound(nbytes, ops, dtype)
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -450,6 +495,11 @@ def phase_kernels(ctx, dev) -> list[dict]:
         scan_regime,
     )
     from repro_torch.kernels.state_replay.kernel import (
+        REPLAY_SPLIT,
+        replay_launch_layout,
+        replay_ring_rows,
+        replay_warps,
+        smem_bytes,
         state_replay,
         state_replay_plain,
         state_walk,
@@ -621,15 +671,24 @@ def phase_kernels(ctx, dev) -> list[dict]:
     walk_cost_plain_ms = (time.perf_counter() - t0) * 1e3
     if not torch.equal(cost_codes.cpu(), want_cost) or int(cost_ovf.sum()):
         fail("state_walk under MinCost differs from its plain version")
-    got = state_replay(nows, guess, **replay_in)
-    t0 = time.perf_counter()
-    want = state_replay_plain(nows.cpu(), guess.cpu(), **on_cpu(replay_in))
-    replay_plain_ms = (time.perf_counter() - t0) * 1e3
-    for field, a_, b_ in zip(got._fields, got, want):
-        if not torch.equal(a_.cpu(), b_):
-            fail(f"state_replay {field} differs from its plain version")
-    if int(got.overflow.sum()):
-        fail("state_replay check overflowed its pool")
+
+    def replay_check(codes, what):
+        """The replay under ``codes`` bit-equal to its plain version (on CPU
+        copies, host-timed); returns the plain run's ms."""
+        got = state_replay(nows, codes, **replay_in)
+        t0 = time.perf_counter()
+        want = state_replay_plain(nows.cpu(), codes.cpu(), **on_cpu(replay_in))
+        plain = (time.perf_counter() - t0) * 1e3
+        for field, a_, b_ in zip(got._fields, got, want):
+            if not torch.equal(a_.cpu(), b_):
+                fail(f"state_replay {field} differs from its plain version "
+                     f"under {what} codes")
+        if int(got.overflow.sum()):
+            fail(f"state_replay check overflowed its pool ({what})")
+        return got, plain
+
+    got, replay_plain_ms = replay_check(guess, "MinLatency")
+    _, replay_cost_plain_ms = replay_check(cost_codes, "MinCost")
     cnt = got.cnt.cpu().numpy()
     codes = np.bincount(guess.cpu().numpy(), minlength=nc + 1).tolist()
     live = float(cnt.sum()) / 2.0      # mean live slots over the chunk
@@ -643,6 +702,22 @@ def phase_kernels(ctx, dev) -> list[dict]:
     if mirror != (warps, ring_rows, split, smem):
         fail(f"the walk's host layout {mirror} differs from the library's "
              f"{(warps, ring_rows, split, smem)}")
+    r_layout = replay_launch_layout(nd, nc, cap, REPLAY_SPLIT)
+    r_mirror = (replay_warps(REPLAY_SPLIT), replay_ring_rows(nd), REPLAY_SPLIT,
+                smem_bytes(nd, nc, cap, REPLAY_SPLIT))
+    log(f"[replay] layout (warps, segment rows, scanners per pool, shared "
+        f"bytes): library {r_layout}, host mirror {r_mirror}")
+    if r_mirror != r_layout:
+        fail(f"the replay's host layout {r_mirror} differs from the "
+             f"library's {r_layout}")
+    # each scan split on the same chunk (the default is REPLAY_SPLIT)
+    split_ms = {s_: cuda_ms(lambda: state_replay(nows, guess, split=s_,
+                                                 **replay_in), 3)
+                for s_ in (1, 2, 4)}
+    replay_ms = cuda_ms(lambda: state_replay(nows, guess, **replay_in), 3)
+    replay_cost_ms = cuda_ms(lambda: state_replay(nows, cost_codes,
+                                                  **replay_in), 3)
+    longest = max(codes[:nc])  # the largest config's dispatch chain
     rows.append(row(
         "state_walk", "src/repro_torch/csrc/state_replay.cu",
         "src/repro/core/jax_core.py:770",
@@ -660,13 +735,20 @@ def phase_kernels(ctx, dev) -> list[dict]:
               "per row)"))
     rows.append(row(
         "state_replay", "src/repro_torch/csrc/state_replay.cu",
-        "src/repro/core/jax_core.py:521",
-        cuda_ms(lambda: state_replay(nows, guess, **replay_in), 3),
+        "src/repro/core/jax_core.py:521", replay_ms,
         replay_plain_ms, 0.0,
         N * (8 + 4 + nd * 8 + nc * 16) + N * (nd * 8 + 4 + nc) + pools,
         N * (nd * 4 + live * 3 + nc), "float64", shape=shape,
         plain_device="cpu",
-        limit="latency of the R-step dependent chain of warp reductions"))
+        chain_floor_ms=replay_chain_floor_ms(longest, r_layout[0] - 1, dev),
+        chain_floor_steps=longest, warps=r_layout[0],
+        ring_rows=r_layout[1], split=r_layout[2], smem_bytes=r_layout[3],
+        split_ms=split_ms, min_cost_ms=replay_cost_ms,
+        min_cost_plain_ms=replay_cost_plain_ms,
+        min_cost_codes=np.bincount(cost_codes.cpu().numpy(),
+                                   minlength=nc + 1).tolist(),
+        limit="latency of the largest config's chain of dispatch rows (one "
+              "named barrier each); under MinCost the edge rows' chain"))
     return rows
 
 
@@ -722,6 +804,47 @@ def fa_case(shape, dtype, dev, causal, window, reps):
         library_ms=graph_ms(sdpa, reps), err=err,
         nbytes=esz * (2 * q.numel() + k.numel() + v.numel()),
         ops=4.0 * B * H * pairs * D, dtype=name)
+
+
+def fa_f32_repeat(dev, n: int = 100) -> dict:
+    """K4 in float32 at the card test's first case, (B, S, H, Hkv, D) =
+    (1, 32, 32, 8, 64) causal, launched ``n`` times after the live serves of
+    phase 5 in this process: every output must have the same bits. Also
+    each side's distance from a float64 softmax: the kernel's and the CPU
+    plain version's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+               for shape in ((1, 32, 32, 64), (1, 8, 32, 64), (1, 8, 32, 64)))
+    qc, kc, vc = (t.to(dev) for t in (q, k, v))
+    outs = [flash_attention_bhsd(qc, kc, vc, causal=True) for _ in range(n)]
+    torch.cuda.synchronize()
+    outs = [o.cpu() for o in outs]
+    differ = sum(not torch.equal(o, outs[0]) for o in outs)
+    kd = k.double().repeat_interleave(4, 1)
+    vd = v.double().repeat_interleave(4, 1)
+    s = q.double() @ kd.transpose(2, 3) / 8.0
+    s = s.masked_fill(~torch.ones(32, 32, dtype=torch.bool).tril(),
+                      float("-inf"))
+    exact = torch.softmax(s, -1) @ vd
+    want = flash_attention_plain(q, k, v, causal=True)
+    res = {"f32_repeat_launches": n, "f32_repeat_differ": differ,
+           "f32_repeat_vs_f64": float((outs[0].double() - exact).abs().max()),
+           "f32_plain_vs_f64": float((want.double() - exact).abs().max()),
+           "f32_repeat_vs_plain": max_err(outs[0], want)}
+    log(f"[k4] float32 (1, 32, 32, 8, 64) causal x {n} after the live "
+        f"serves: {json.dumps(res)}")
+    if differ or res["f32_repeat_vs_plain"] > ATTN_TOL["float32"]:
+        fail(f"K4 float32 is not bit-stable over {n} launches or differs "
+             f"from its plain version: {res}")
+    return res
 
 
 def row_rel_err(got, want) -> float:
@@ -919,15 +1042,18 @@ def ssd_layer_inputs(dev, shapes) -> tuple[dict, int]:
     return out, cfg.ssm_chunk
 
 
-def ssd_case(args, dtype, chunk, reps) -> dict:
+def ssd_case(args, dtype, chunk, reps, ref=False) -> dict:
     """K6 vs its plain version at one shape, called as ``ops.ssd`` calls it
-    (strided views of the model's tensors in, a transposed view out)."""
+    (strided views of the model's tensors in, a transposed view out); with
+    ``ref`` also against the literal oracle ``ssd_ref``."""
     import torch
 
     from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_route,
         ssd_scan_bhsd,
         ssd_scan_plain,
     )
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
     xs, dt, A, B, C = args
     x, B, C = xs.to(dtype).transpose(1, 2), B.to(dtype), C.to(dtype)
@@ -947,24 +1073,58 @@ def ssd_case(args, dtype, chunk, reps) -> dict:
         fail(f"K6 b={b} S={S} {name} differs from its plain version: y "
              f"{err} ({y_rel} of max(1, |y|)), state {s_err}")
     ds, Q = B.shape[-1], min(chunk, S)
-    ops = 0.0
+    tc_ops = f32_ops = 0.0  # C B^T (tensor cores in bf16); the rest, float32
     for r0 in range(0, S, Q):
         qc = min(Q, S - r0)
         tri = qc * (qc + 1) / 2              # the (q, s <= q) pairs
-        ops += b * 2 * tri * ds               # C B^T, shared by the heads
-        ops += b * H * (2 * tri * hd + 2 * qc * hd * ds)  # scores x, state
+        tc_ops += b * 2 * tri * ds            # C B^T, shared by the heads
+        f32_ops += b * H * (2 * tri * hd + 2 * qc * hd * ds)  # scores x, state
         if r0:                                # the carried state's part of y
-            ops += b * H * 2 * qc * hd * ds
+            f32_ops += b * H * 2 * qc * hd * ds
+    if dtype != torch.bfloat16:
+        f32_ops, tc_ops = f32_ops + tc_ops, 0.0
+    nbytes = x.element_size() * (2 * x.numel() + B.numel() + C.numel()) \
+        + 4 * (dt.numel() + A.numel() + st.numel())
     kernel = lambda: ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk,  # noqa: E731
                                    out=out)
-    return dict(
+    out_ = dict(
         ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
         plain_ms=graph_ms(lambda: ssd_scan_plain(x, dtt, A, B, C, chunk=chunk),
                           max(reps // 10, 2)),
-        err=err, y_rel_err=y_rel, state_err=s_err,
-        y_max=float(yp.float().abs().max()),
-        nbytes=x.element_size() * (2 * x.numel() + B.numel() + C.numel())
-        + 4 * (dt.numel() + A.numel() + st.numel()), ops=ops)
+        err=err, y_rel_err=y_rel, state_err=s_err, route=ssd_route(S, chunk),
+        y_max=float(yp.float().abs().max()), nbytes=nbytes,
+        ops=tc_ops + f32_ops,
+        **dict(zip(("bound_ms", "bound_by"),
+                   ssd_bound(nbytes, tc_ops, f32_ops))))
+    if ref:
+        # against the literal oracle: within the plain version's own gap to
+        # ssd_ref on the CPU (the same inputs), plus the kernel's limit
+        # against the plain version as the margin
+        cpu = [t.cpu() for t in (xs, dt, A, B, C)]
+        ry, rs = ssd_ref(*cpu)
+        py_, ps_ = ssd_scan_plain(cpu[0].transpose(1, 2),
+                                  cpu[1].transpose(1, 2), cpu[2], cpu[3],
+                                  cpu[4], chunk=chunk)
+        gap = max(max_err(py_.transpose(1, 2), ry), max_err(ps_, rs))
+        ref_err = max(max_err(y.transpose(1, 2), ry), max_err(st, rs))
+        limit = gap + SSD_TOL[name]
+        log(f"[ssd] K6 b={b} S={S} {name} vs ssd_ref: {ref_err:.3g} (the "
+            f"CPU plain version's gap {gap:.3g} + margin {SSD_TOL[name]})")
+        if ref_err > limit:
+            fail(f"K6 b={b} S={S} {name} lies {ref_err} from ssd_ref, beyond "
+                 f"{limit}")
+        out_.update(ref_err=ref_err, ref_gap=gap, ref_limit=limit)
+    return out_
+
+
+def ssd_bound(nbytes: float, tc_ops: float, f32_ops: float):
+    """K6's bound: the bytes over HBM's rate, or the operations at their
+    rates (C B^T at the bf16 tensor-core rate, the float32 products at the
+    float32 rate), whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (tc_ops / PEAK_OPS["bfloat16"] + f32_ops / PEAK_OPS["float32"]) \
+        * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_ssd(dev) -> list[dict]:
@@ -978,25 +1138,30 @@ def phase_ssd(dev) -> list[dict]:
     cases = {"f32": ssd_case(inputs[(1, PROMPT_LEN)], f32, chunk, 200),
              "s300": ssd_case(inputs[(1, SSM_LONG_PROMPT)], bf16, chunk, 50),
              "s300_f32": ssd_case(inputs[(1, SSM_LONG_PROMPT)], f32, chunk,
-                                  50),
+                                  50, ref=True),
              "b2_s4096": ssd_case(inputs[(2, 4096)], bf16, chunk, 5),
              "b2_s4096_f32": ssd_case(inputs[(2, 4096)], f32, chunk, 5)}
     extra = {f"{tag}_{key}": c[key] for tag, c in cases.items()
-             for key in ("ms", "plain_ms", "err", "y_rel_err", "state_err")}
+             for key in ("ms", "plain_ms", "err", "y_rel_err", "state_err",
+                         "route", "bound_ms", "bound_by")}
+    extra.update({f"s300_f32_{k}": cases["s300_f32"][k]
+                  for k in ("ref_err", "ref_gap", "ref_limit")})
     extra["eager_ms"] = path["eager_ms"]
-    for tag in ("s300", "b2_s4096"):
-        b_ms, b_by = bound(cases[tag]["nbytes"], cases[tag]["ops"], "float32")
-        extra[f"{tag}_bound_ms"], extra[f"{tag}_bound_by"] = b_ms, b_by
+    extra["route"] = path["route"]
     return [row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-                "src/repro/kernels/ssd_scan/kernel.py:87", path["ms"],
-                path["plain_ms"], path["err"], path["nbytes"], path["ops"],
-                "float32", y_rel_err=path["y_rel_err"],
-                state_err=path["state_err"], y_max=path["y_max"],
-                shape="x (1, 48, 32, 64) B/C (1, 32, 128) bf16, one chunk of "
-                      "32; s300: S=300, 3 chunks of 128 (the last padded); "
-                      "b2_s4096: b=2, S=4096, 32 chunks; inputs from "
-                      "mamba2-780m's first layer at full width",
-                rate="float32 (the kernel widens its inputs)", **extra)]
+              "src/repro/kernels/ssd_scan/kernel.py:87", path["ms"],
+              path["plain_ms"], path["err"], path["nbytes"], path["ops"],
+              "float32", y_rel_err=path["y_rel_err"],
+              state_err=path["state_err"], y_max=path["y_max"],
+              shape="x (1, 48, 32, 64) B/C (1, 32, 128) bf16, one chunk of "
+                    "32 (one launch); s300: S=300, 3 chunks of 128 (the "
+                    "last padded); b2_s4096: b=2, S=4096, 32 chunks (three "
+                    "launches each); inputs from mamba2-780m's first layer "
+                    "at full width",
+              rate="bf16: C B^T at the bf16 tensor-core rate, the float32 "
+                   "products at the float32 rate; f32: all at the float32 "
+                   "rate", bound_at=(path["bound_ms"], path["bound_by"]),
+              **extra)]
 
 
 # ------------------------------------------------------------------ phase 4

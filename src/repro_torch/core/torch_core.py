@@ -19,7 +19,9 @@ One chunk:
 2. **Place** — the ``state_walk`` kernel decides every row sequentially
    from the exact state (the numpy core's scalar walk on the device); its
    policy-view codes (``-1`` = pad row) are then verified as a fixed point
-   in ONE pass with one host sync: the sequential state is replayed from
+   in ONE pass with one host sync (one copy carries the verdict, the walk's
+   overflow flag and the pools' largest live count): the sequential state
+   is replayed from
    the chunk-start state under those codes — the edge FIFO horizons with
    the least-predicted-wait nominations and the CIL container pools through
    the ``state_replay`` kernel, the Alg. 1 surplus bank through the
@@ -300,6 +302,7 @@ class TorchPlacementCore:
         self.state_syncs = 0      # host materializations of resident state
         self.fallback_syncs = 0   # ... of which were forced by a fallback
         self.resident_chunks = 0  # chunks absorbed without a host sync
+        self.verify_syncs = 0     # device-to-host copies of a walk's verdict
         self.chunk_commits = 0    # per-chunk host commits (no residency)
         self.pool_regrows = 0     # chunks walked again after a pool overflow
 
@@ -484,10 +487,14 @@ class TorchPlacementCore:
     def _walk_and_verify(self, P: dict, S: dict, R: int):
         """The chunk's decisions: the ``state_walk`` kernel decides every row
         from the exact sequential state, then ONE replay pass recomputes the
-        state under those codes and the policy chooses again from it. The
-        codes must reproduce themselves (one sync); a mismatch is a fault of
-        the walk or the replay and raises. Returns ``None`` when the walk's
-        pool overflowed (the caller grows the pool and walks again)."""
+        state under those codes and the policy chooses again from it. One
+        copy brings the verdict to the host (one sync a walk): the walk's
+        overflow flag, whether the codes reproduce themselves (with the
+        replay's own overflow) and the largest live-slot count of the
+        replayed pools. A walk whose pool overflowed discards the replay and
+        returns ``None`` (the caller grows the pool and walks again); codes
+        that do not reproduce are a fault of the walk or the replay and
+        raise. Returns ``(st, code, feas, allowed, cnt_max)``."""
         g, walk_ovf = state_walk(
             P["nows"], P["n"], ecomp=P.get("ECOMP"), elat=P.get("ELAT"),
             h0=S.get("h0"), nom_fixed=P.get("nom_fixed"), lpw=self.lpw,
@@ -496,8 +503,6 @@ class TorchPlacementCore:
             last0=S.get("last0"), cnt0=S.get("cnt0"), t_idl=self.t_idl,
             minlat=self.is_minlat, c_max=P["c_max"], alpha=P["alpha"],
             s0=S.get("s0"), deadline=P["deadline"])
-        if self.n_cloud and bool(walk_ovf.any()):
-            return None  # the walk's pool overflowed: grow it first
         st = self._state(g, P, S)
         if self.is_minlat:
             # two rounded ops — the oracle's c_max + alpha * s_before
@@ -507,14 +512,24 @@ class TorchPlacementCore:
             allowed = self._inf.expand(R)
         code, feas = self._choose(st["LAT"], st["COST"], allowed,
                                   P["deadline"], P["valid"])
-        bad = (code != g).any()
+        verdict = [(code != g).any()]
         if self.n_cloud:
-            bad = bad | st["rep"].overflow.any()
-        if bool(bad):
+            rep = st["rep"]
+            verdict += [walk_ovf.any(), rep.overflow.any(), rep.cnt.max()]
+        verdict = torch.stack([v.to(torch.int64) for v in verdict]).tolist()
+        self.verify_syncs += 1
+        bad = bool(verdict[0])
+        cnt_max = 0
+        if self.n_cloud:
+            if verdict[1]:
+                return None  # the walk's pool overflowed: grow it first
+            bad |= bool(verdict[2])
+            cnt_max = int(verdict[3])
+        if bad:
             raise RuntimeError(
                 "torch placement: the replay of the state_walk decisions "
                 "does not reproduce them")
-        return st, code, feas, allowed
+        return st, code, feas, allowed, cnt_max
 
     def _compact(self, busy, last, cnt, t_last: float):
         """Device-side stable pool compaction == the deferred reap (exact:
@@ -786,7 +801,7 @@ class TorchPlacementCore:
                     f"{cap} container slots in one pool, the most the "
                     "state_walk kernel's block holds")
             cap = new_cap
-        st, code, feas, allowed = out
+        st, code, feas, allowed, cnt_max = out
         self._cap_hint = cap
 
         block = self._finalize(st, code, feas, allowed,
@@ -802,7 +817,7 @@ class TorchPlacementCore:
                 # seed becomes the next pass's output buffer (in-place reuse)
                 old = (S["busy0"], S["last0"], S["cnt0"])
                 rs.busy, rs.last, rs.cnt = rep.busy, rep.last, rep.cnt
-                rs.cnt_max = int(rep.cnt.max())
+                rs.cnt_max = cnt_max
                 self._spare = old
             if self.has_edge:
                 rs.h = rep.h_fin

@@ -15,20 +15,56 @@
 //     "no idle container" flag (cold), and for a row placed on the config the
 //     most-recently-used idle container (first max of `last` over idle slots)
 //     or, when none is idle, a cold start into slot `cnt` (overflow when the
-//     pool is full: the caller grows the pool and replays).
+//     pool is full: no write, the caller grows the pool and replays).
 //
-// Design: the pools of different configs and the edge horizons never interact
-// given `guess`, so each runs in its own block of one warp: block c < nc owns
-// config c's (busy, last) pool in shared memory (cap x 16 B; 8 KB at cap 512),
-// block nc the edge horizons. Rows stream through in tiles of 32 (one coalesced
-// load per lane, broadcast with shuffles), the pool scan is split over the 32
-// lanes and reduced with warp shuffles, so the row loop has no block barrier.
+// What bounds it on the H100: latency. Given `guess` the pools of different
+// configs and the edge horizons never interact, but each is a chain of
+// dependent steps, one block per chain (block c < nc: config c's pool; block
+// nc: the edge horizons), and the rest of the card idles. Bytes (tens of MB)
+// and operations are far below the card's rates. The design keeps on each
+// chain only the rows that change its state:
 //
-// What bounds it on the H100: latency. A chunk is one sequential problem of R
-// dependent steps per block; at R = 65,536 the pass is a chain of ~65k warp
-// reductions and the rest of the card idles. Bytes (tens of MB) and operations
-// are far below the card's rates. The pool must fit one block's shared memory
-// (up to 227 KB, cap <= 14,000 slots); the wrapper raises above that.
+//   * a config's pool changes only on that config's own dispatch rows. The
+//     chunk streams through in segments of `replay_ring_rows` rows; while the
+//     block works on one segment, its producer warp (warp 1) stages the next
+//     (nows and codes with cp.async, then a ballot for guess == c compacts
+//     the dispatch rows into a list, their (occw, occc) gathered with
+//     cp.async beside it). The other warps then step through the segment's
+//     dispatches only, one named barrier (the producer stays out of it) a
+//     dispatch;
+//   * in the step of dispatch k the `split` scanner warps (warp 0 and warps
+//     2, 3, ...) rank their parts of the pool at dispatch k's `now`: the
+//     first maximum of `last` over idle slots (busy <= now <= last + t_idl),
+//     as order-preserving keys, reduced across each warp with redux.sync.
+//     Past the barrier every warp merges the parts and applies the dispatch
+//     (the same decision in every warp, so no second barrier), and the
+//     thread that scans the chosen slot writes it. Each slot is read in
+//     scans and written by that one thread only, so the pool needs no
+//     double buffer and no patch;
+//   * the cold flags of the other rows come off the chain: between two
+//     dispatches the pool is fixed, so in step k the gap warps flag the rows
+//     between dispatches k-1 and k against the pool after dispatch k-1, a
+//     warp a row, in parallel over rows. They take dispatch k-1's slot from
+//     (pj, pcomp) with a predicated load that skips it, since its writer
+//     may still be storing it;
+//   * the edge block's chain thread keeps the horizons in registers
+//     (unrolled to a compile-time bound on nd: 4 or 32; larger fleets keep
+//     them in shared memory) and steps through the edge rows only, the next
+//     row's inputs loaded while one is applied, writing the horizons after
+//     each into a snapshot list. `hb` and `nom` of every row follow from the
+//     snapshot of the edge rows before it, since h is constant between two
+//     edge rows: writer warps fill them in parallel for the previous segment
+//     while the producer stages the next.
+//
+// A design with a separate chain warp, whose scanners rank the pool one
+// dispatch ahead (best and runner-up) and whose chain patches that with the
+// slot the previous dispatch changed, took longer on the card (PERF.md): its
+// runner-up doubles the reductions of a scan, and the scan, not the chain,
+// is the longer of the two.
+//
+// This code shares nothing with the decision walk below but the copy and key
+// helpers: on the main path the replay is the walk's only check.
+// `state_replay_chain_floor` times one named-barrier hand-off a dispatch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -38,160 +74,561 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
 
-__device__ void cil_block(int c, const double* __restrict__ nows,
-                          const int* __restrict__ guess, int R, int nc, int cap,
-                          double t_idl, const double* __restrict__ occw,
-                          const double* __restrict__ occc, const double* __restrict__ busy0,
-                          const double* __restrict__ last0, const int* __restrict__ cnt0,
-                          unsigned char* __restrict__ cold, double* __restrict__ busyF,
-                          double* __restrict__ lastF, int* __restrict__ cntF,
-                          int* __restrict__ ovf_out, double* smem) {
-  const int lane = threadIdx.x;
-  double* busy = smem;
-  double* last = smem + cap;
-  for (int j = lane; j < cap; j += kWarp) {
-    busy[j] = busy0[(size_t)c * cap + j];
-    last[j] = last0[(size_t)c * cap + j];
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a key whose unsigned order is the order of the doubles; -0 is read as +0,
+// so equal doubles have equal keys. 0 is below every double's key: no slot.
+__device__ __forceinline__ unsigned long long okey(double x) {
+  const long long u = __double_as_longlong(__dadd_rn(x, 0.0));
+  return u < 0 ? ~(unsigned long long)u : ((unsigned long long)u | 0x8000000000000000ull);
+}
+
+// ------------------------------------------------------------------ replay
+constexpr int REPLAY_MAX_ROWS = 1024;                  // rows of a segment at most
+constexpr long long REPLAY_EDGE_BUDGET = 128 * 1024;   // the edge block's 3 segment buffers
+constexpr int REPLAY_GAP_WARPS = 4;                    // warps flagging the rows between dispatches
+constexpr int REPLAY_MAX_SPLIT = 4;                    // scanner warps of one pool: 1, 2 or 4
+constexpr int REPLAY_SPLIT = 2;                        // the default
+constexpr int kNone = 0x7fffffff;                      // no slot
+
+// Shared-memory layouts, in bytes from the block's base; the host mirrors
+// them (kernels/state_replay/kernel.py).
+struct PoolLayout {  // a config block
+  long long wcc, now, key, g, list, nd, slot, total;
+};
+
+__host__ __device__ inline PoolLayout pool_layout(int cap, int seg, int split) {
+  PoolLayout L;
+  long long o = 16LL * cap;                    // the pool: (busy, last) per slot
+  L.wcc = o;   o += 2LL * seg * 16;            // [2][seg] (occw, occc) of the dispatches
+  L.now = o;   o += 2LL * seg * 8;             // [2][seg] nows
+  L.key = o;   o += 2LL * split * 8;           // [2][split] the scan parts' best keys
+  L.g = o;     o += 2LL * seg * 4;             // [2][seg] staged codes
+  L.list = o;  o += 2LL * seg * 4;             // [2][seg] the dispatch rows
+  L.nd = o;    o += 2 * 4;                     // [2] dispatches of the segment
+  L.slot = o;  o += 2LL * split * 4;           // [2][split] their slots
+  L.total = o;
+  return L;
+}
+
+struct EdgeLayout {  // the edge block: three buffers of each
+  long long now, ec, snap, g, nf, list, cntb, nd, total;
+};
+
+__host__ __device__ inline EdgeLayout edge_layout(int nd, int seg) {
+  EdgeLayout L;
+  long long o = 0;
+  L.now = o;   o += 3LL * seg * 8;             // nows
+  L.ec = o;    o += 3LL * seg * nd * 8;        // ecomp rows
+  L.snap = o;  o += 3LL * (seg + 1) * nd * 8;  // horizons before the segment and after each edge row
+  L.g = o;     o += 3LL * seg * 4;             // staged codes
+  L.nf = o;    o += 3LL * seg * 4;             // fixed nominations
+  L.list = o;  o += 3LL * seg * 4;             // the edge rows
+  L.cntb = o;  o += 3LL * seg * 4;             // edge rows before each row
+  L.nd = o;    o += 3 * 4;                     // edge rows of the segment
+  L.total = o;
+  return L;
+}
+
+// rows of a segment: the largest power of two up to REPLAY_MAX_ROWS whose edge
+// buffers fit REPLAY_EDGE_BUDGET
+__host__ __device__ inline int replay_ring_rows(int nd) {
+  int seg = REPLAY_MAX_ROWS;
+  while (seg > 1 && edge_layout(nd, seg).total > REPLAY_EDGE_BUDGET) seg >>= 1;
+  return seg;
+}
+
+// warps of a block: `split` scanners (warp 0 and warps 2 ..), the producer
+// (warp 1), the gap warps
+__host__ __device__ inline int replay_warps(int split) { return 1 + split + REPLAY_GAP_WARPS; }
+
+__host__ __device__ inline long long replay_smem(int nd, int nc, int cap, int split) {
+  const int seg = replay_ring_rows(nd);
+  const long long pool = nc > 0 ? pool_layout(cap, seg, split).total : 0;
+  const long long edge = nd > 0 ? edge_layout(nd, seg).total : 0;
+  return pool > edge ? pool : edge;
+}
+
+struct ReplayArgs {
+  const double* nows;
+  const int* guess;
+  int R, nd, lpw, edge_col;
+  const double* ecomp;
+  const double* h0;
+  const int* nom_fixed;
+  double* hb;
+  int* nom;
+  double* h_fin;
+  int nc, cap;
+  double t_idl;
+  const double* occw;
+  const double* occc;
+  const double* busy0;
+  const double* last0;
+  const int* cnt0;
+  unsigned char* cold;
+  double* busyF;
+  double* lastF;
+  int* cntF;
+  int* ovf;
+  int split, seg;
+};
+
+__device__ __forceinline__ void group_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// slot j of the pool as a gap warp sees it in a step: slot `pj` (the last
+// dispatch's) is `pcomp` and is not loaded (its scanning thread may still be
+// writing it); slots at or past `cnt` are never idle
+__device__ __forceinline__ void view_slot(const double2* pool, int j, int cnt, int pj,
+                                          double pcomp, double& busy, double& last) {
+  const bool load = (j < cnt) & (j != pj);
+  busy = j == pj ? pcomp : CUDART_INF;
+  last = j == pj ? pcomp : -CUDART_INF;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(pool + (j < cnt ? j : 0));
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %3, 0;\n @p ld.shared.v2.f64 {%0, %1}, [%2];\n}\n"
+      : "+d"(busy), "+d"(last)
+      : "r"(a), "r"((unsigned)load));
+}
+
+// (key, slot) ranks above (K, J): a larger key, or the same key at a smaller slot
+__device__ __forceinline__ bool ranks_above(unsigned long long key, int j,
+                                            unsigned long long K, int J) {
+  return (key > K) | ((key == K) & (j < J));
+}
+
+// the warp's best (key, slot) pair: the largest key, then the smallest slot
+__device__ __forceinline__ void warp_best(unsigned long long key, int j, unsigned long long& K,
+                                          int& J) {
+  const unsigned hi = __reduce_max_sync(kFull, (unsigned)(key >> 32));
+  const unsigned lo = __reduce_max_sync(kFull, (unsigned)(key >> 32) == hi ? (unsigned)key : 0u);
+  K = ((unsigned long long)hi << 32) | lo;
+  J = (int)__reduce_min_sync(kFull, key == K ? (unsigned)j : (unsigned)kNone);
+}
+
+// A scanner warp's part of the pool at `now`: the first maximum of `last`
+// over the idle slots among part * 32 + lane + 32 * S * i, as (key, slot).
+// A slot is only ever written by the thread that scans it (the last
+// dispatch's included), so the loads need no patch; each lane walks its own
+// live slots only, the next slot's load in flight while one is ranked, by
+// `last` as a double (slots ascending: an equal value keeps the first).
+template <int S>
+__device__ __forceinline__ void scan_part(const double2* pool, int cnt, double now,
+                                          double t_idl, int part, int lane,
+                                          unsigned long long& K, int& J) {
+  constexpr int stride = kWarp * S;
+  double best = -CUDART_INF;  // an idle slot's `last` is never -inf (now <= last + t_idl)
+  int jb = kNone;
+  int j = part * kWarp + lane;
+  double2 v = j < cnt ? pool[j] : make_double2(0.0, 0.0);
+  for (; j < cnt; j += stride) {
+    const double2 vn = j + stride < cnt ? pool[j + stride] : v;
+    const bool up = (v.x <= now) & (now <= __dadd_rn(v.y, t_idl)) & (v.y > best);
+    best = up ? v.y : best;
+    jb = up ? j : jb;
+    v = vn;
   }
-  __syncwarp();
-  int cnt = cnt0[c];
-  int ovf = 0;
-  for (int r0 = 0; r0 < R; r0 += kWarp) {
-    const int r = r0 + lane;
-    const bool live = r < R;
-    const double my_now = live ? nows[r] : 0.0;
-    const int my_g = live ? guess[r] : -1;
-    const double my_w = (live && my_g == c) ? occw[(size_t)r * nc + c] : 0.0;
-    const double my_c = (live && my_g == c) ? occc[(size_t)r * nc + c] : 0.0;
-    unsigned char my_cold = 0;
-    const int rows = min(kWarp, R - r0);
-    for (int i = 0; i < rows; ++i) {
-      const double now = __shfl_sync(kFull, my_now, i);
-      const int g = __shfl_sync(kFull, my_g, i);
-      // idle scan: busy <= now <= last + t_idl, first max of `last` per lane
-      double bl = -CUDART_INF;
-      int bj = cap;
-      bool idle_any = false;
-      for (int j = lane; j < cnt; j += kWarp) {
-        const double b = busy[j], l = last[j];
-        if (b <= now && now <= __dadd_rn(l, t_idl)) {
-          idle_any = true;
-          if (l > bl) {
-            bl = l;
-            bj = j;
-          }
-        }
-      }
-      const bool cold_row = __ballot_sync(kFull, idle_any) == 0u;
-      if (lane == i) my_cold = cold_row ? 1 : 0;
-      if (g != c) continue;  // uniform across the warp
-      const double w = __shfl_sync(kFull, my_w, i);
-      const double cc = __shfl_sync(kFull, my_c, i);
-      int j;
-      if (cold_row) {
-        j = cnt;
-      } else {
-        for (int off = kWarp / 2; off > 0; off >>= 1) {
-          const double ol = __shfl_down_sync(kFull, bl, off);
-          const int oj = __shfl_down_sync(kFull, bj, off);
-          if (ol > bl || (ol == bl && oj < bj)) {
-            bl = ol;
-            bj = oj;
-          }
-        }
-        j = __shfl_sync(kFull, bj, 0);
-      }
-      if (cold_row && j >= cap) {
-        ovf = 1;  // pool full: no write, the caller grows the pool and replays
-      } else {
-        const double completion = __dadd_rn(now, cold_row ? cc : w);
-        if (lane == 0) {
-          busy[j] = completion;
-          last[j] = completion;
-        }
-        if (cold_row) ++cnt;
-      }
-      __syncwarp();
+  warp_best(jb != kNone ? okey(best) : 0ull, jb, K, J);
+}
+
+// any slot of the pool idle at `now` (a warp, 32 slots a step)
+__device__ __forceinline__ bool any_idle(const double2* pool, int cnt, int pj, double pcomp,
+                                         double now, double t_idl, int lane) {
+  for (int j0 = 0; j0 < cnt; j0 += kWarp) {
+    double b, l;
+    view_slot(pool, j0 + lane, cnt, pj, pcomp, b, l);
+    if (__any_sync(kFull, (b <= now) & (now <= __dadd_rn(l, t_idl)))) return true;
+  }
+  return false;
+}
+
+template <int S>
+__device__ void replay_pool_block(const int c, const ReplayArgs& a, unsigned char* sm) {
+  const int tid = threadIdx.x, lane = tid % kWarp, w = tid / kWarp;
+  const int SEG = a.seg, cap = a.cap, nc = a.nc, R = a.R;
+  const PoolLayout L = pool_layout(cap, SEG, S);
+  double2* pool = reinterpret_cast<double2*>(sm);
+  double2* wcc = reinterpret_cast<double2*>(sm + L.wcc);
+  double* snow = reinterpret_cast<double*>(sm + L.now);
+  unsigned long long* rkey = reinterpret_cast<unsigned long long*>(sm + L.key);
+  int* sg = reinterpret_cast<int*>(sm + L.g);
+  int* list = reinterpret_cast<int*>(sm + L.list);
+  int* nD = reinterpret_cast<int*>(sm + L.nd);
+  int* rslot = reinterpret_cast<int*>(sm + L.slot);
+  const int group = (int)blockDim.x - kWarp;  // threads of the step group: all but the producer
+  const int G = (int)blockDim.x / kWarp - 1 - S;
+  // warp 0 and warps 2 .. S scan parts 0 .. S-1; warps S+1 .. flag the gaps
+  const int part = w == 0 ? 0 : w - 1;
+  const bool scanner = w != 1 && part < S;
+
+  // producer warp: segment s's nows and codes, then its dispatch list
+  auto stage = [&](int s) {
+    const int b = s & 1, r0 = s * SEG, n = min(SEG, R - r0);
+    double* nw = snow + (size_t)b * SEG;
+    int* g = sg + (size_t)b * SEG;
+    int* lst = list + (size_t)b * SEG;
+    double2* oc = wcc + (size_t)b * SEG;
+    for (int i = lane; i < n; i += kWarp) {
+      cp_async8(nw + i, a.nows + r0 + i);
+      cp_async4(g + i, a.guess + r0 + i);
     }
-    if (live) cold[(size_t)r * nc + c] = my_cold;
+    cp_commit();
+    cp_wait<0>();
+    __syncwarp();
+    int base = 0;
+    for (int t = 0; t < n; t += kWarp) {
+      const int i = t + lane;
+      const bool mine = (i < n) && g[i] == c;
+      const unsigned m = __ballot_sync(kFull, mine);
+      if (mine) {
+        const int at = base + __popc(m & ((1u << lane) - 1u));
+        lst[at] = i;
+        const size_t src = (size_t)(r0 + i) * nc + c;
+        cp_async8(&oc[at].x, a.occw + src);
+        cp_async8(&oc[at].y, a.occc + src);
+      }
+      base += __popc(m);
+    }
+    if (lane == 0) nD[b] = base;
+    cp_commit();
+    cp_wait<0>();
+  };
+
+  for (int i = tid; i < cap; i += blockDim.x)
+    pool[i] = make_double2(a.busy0[(size_t)c * cap + i], a.last0[(size_t)c * cap + i]);
+  int cnt = a.cnt0[c];  // every warp of the step group tracks the live-slot count
+  int ovf = 0;
+  const int nseg = (R + SEG - 1) / SEG;
+  if (w == 1) stage(0);
+  __syncthreads();
+
+  for (int s = 0; s < nseg; ++s) {
+    if (w == 1) {
+      if (s + 1 < nseg) stage(s + 1);
+      __syncthreads();
+      continue;
+    }
+    const int b = s & 1, r0 = s * SEG, n = min(SEG, R - r0), D = nD[b];
+    const double* nw = snow + (size_t)b * SEG;
+    const int* lst = list + (size_t)b * SEG;
+    const double2* oc = wcc + (size_t)b * SEG;
+    // the previous dispatch (slot or -1, completion): the array has it only
+    // in the thread that owns its slot, every other reader takes it from here
+    int pj = -1;
+    double pcomp = 0.0;
+    // dispatch k's row, now and (occw, occc), loaded a step ahead, and the
+    // next dispatch's row and now, two steps ahead (the scan waits on now)
+    int row = D > 0 ? lst[0] : 0;
+    double now = D > 0 ? nw[row] : 0.0;
+    double2 o = D > 0 ? oc[0] : make_double2(0.0, 0.0);
+    int row_n = D > 1 ? lst[1] : 0;
+    double now_n = D > 1 ? nw[row_n] : 0.0;
+    // Step k: the scanners rank the pool after dispatch k-1 at dispatch k's
+    // now, the gap warps flag the rows between dispatches k-1 and k against
+    // it; past the barrier every warp merges the parts and applies dispatch k
+    for (int k = 0; k <= D; ++k) {
+      if (scanner) {
+        if (k < D) {
+          unsigned long long K;
+          int J;
+          scan_part<S>(pool, cnt, now, a.t_idl, part, lane, K, J);
+          if (lane == 0) {
+            rkey[(k & 1) * S + part] = K;
+            rslot[(k & 1) * S + part] = J;
+          }
+        }
+      } else {
+        const int lo = k > 0 ? lst[k - 1] + 1 : 0, hi = k < D ? lst[k] : n;
+        for (int i = lo + (w - 1 - S); i < hi; i += G) {
+          const bool any = any_idle(pool, cnt, pj, pcomp, nw[i], a.t_idl, lane);
+          if (lane == 0) a.cold[(size_t)(r0 + i) * nc + c] = any ? 0 : 1;
+        }
+      }
+      group_sync(group);
+      if (k == D) break;
+      // dispatch k, the same in every warp of the group
+      unsigned long long KA = rkey[(k & 1) * S];
+      int JA = rslot[(k & 1) * S];
+#pragma unroll
+      for (int q = 1; q < S; ++q) {
+        const unsigned long long kq = rkey[(k & 1) * S + q];
+        const int jq = rslot[(k & 1) * S + q];
+        const bool up = ranks_above(kq, jq, KA, JA);
+        KA = up ? kq : KA;
+        JA = up ? jq : JA;
+      }
+      const bool cold = KA == 0;
+      int j = cold ? cnt : JA;
+      if (cold) {
+        if (j >= cap) {
+          ovf = 1;  // pool full: no write, the caller grows the pool and replays
+          j = -1;
+        } else {
+          ++cnt;
+        }
+      }
+      const double comp = __dadd_rn(now, cold ? o.y : o.x);
+      if (w == 0 && lane == 0) a.cold[(size_t)(r0 + row) * nc + c] = cold ? 1 : 0;
+      // the slot's scanning thread writes it (and alone ever loads it in a
+      // scan); the gap warps take it from (pj, pcomp) until the next barrier
+      if (j >= 0 && scanner && lane == j % kWarp && part == (j / kWarp) % S)
+        pool[j] = make_double2(comp, comp);
+      pj = j;
+      pcomp = comp;
+      if (k + 1 < D) {
+        row = row_n;
+        now = now_n;
+        o = oc[k + 1];
+      }
+      if (k + 2 < D) {
+        row_n = lst[k + 2];
+        now_n = nw[row_n];
+      }
+    }
+    __syncthreads();
   }
-  __syncwarp();
-  for (int j = lane; j < cap; j += kWarp) {
-    busyF[(size_t)c * cap + j] = busy[j];
-    lastF[(size_t)c * cap + j] = last[j];
+  for (int i = tid; i < cap; i += blockDim.x) {
+    const double2 v = pool[i];
+    a.busyF[(size_t)c * cap + i] = v.x;
+    a.lastF[(size_t)c * cap + i] = v.y;
   }
-  if (lane == 0) {
-    cntF[c] = cnt;
-    ovf_out[c] = ovf;
+  if (tid == 0) {
+    a.cntF[c] = cnt;
+    a.ovf[c] = ovf;
   }
 }
 
-__device__ void edge_block(const double* __restrict__ nows, const int* __restrict__ guess,
-                           int R, int nd, int lpw, int edge_col,
-                           const double* __restrict__ ecomp, const double* __restrict__ h0,
-                           const int* __restrict__ nom_fixed, double* __restrict__ hb,
-                           int* __restrict__ nom, double* __restrict__ h_fin,
-                           double* smem) {
-  const int lane = threadIdx.x;
-  double* h = smem;                 // (nd,)
-  double* s_now = h + nd;           // (32,)
-  double* s_ec = s_now + kWarp;     // (32, nd)
-  int* s_g = reinterpret_cast<int*>(s_ec + kWarp * nd);  // (32,)
-  int* s_nf = s_g + kWarp;                              // (32,)
-  for (int d = lane; d < nd; d += kWarp) h[d] = h0[d];
-  for (int r0 = 0; r0 < R; r0 += kWarp) {
-    const int rows = min(kWarp, R - r0);
-    __syncwarp();
-    if (lane < rows) {
-      s_now[lane] = nows[r0 + lane];
-      s_g[lane] = guess[r0 + lane];
-      s_nf[lane] = lpw ? 0 : nom_fixed[r0 + lane];
+// first device of least max(h - now, 0)
+__device__ __forceinline__ int least_wait(const double* h, int nd, double now) {
+  int best = 0;
+  double bw = fmax(__dsub_rn(h[0], now), 0.0);
+  for (int d = 1; d < nd; ++d) {
+    const double wd = fmax(__dsub_rn(h[d], now), 0.0);
+    if (wd < bw) {
+      bw = wd;
+      best = d;
     }
-    for (int k = lane; k < rows * nd; k += kWarp) s_ec[k] = ecomp[(size_t)r0 * nd + k];
-    __syncwarp();
-    if (lane == 0) {
-      for (int i = 0; i < rows; ++i) {
-        const double now = s_now[i];
-        const size_t r = (size_t)(r0 + i);
-        int best;
-        if (lpw) {
-          best = 0;
-          double bw = fmax(__dsub_rn(h[0], now), 0.0);
-          for (int d = 1; d < nd; ++d) {
-            const double w = fmax(__dsub_rn(h[d], now), 0.0);
-            if (w < bw) {
-              bw = w;
-              best = d;
+  }
+  return best;
+}
+
+// NDM > 0: the horizons in registers, loops unrolled to NDM >= nd; NDM == 0:
+// in the snapshot list itself (any nd)
+template <int NDM>
+__device__ void replay_edge_block(const ReplayArgs& a, unsigned char* sm) {
+  const int tid = threadIdx.x, lane = tid % kWarp, w = tid / kWarp;
+  const int SEG = a.seg, nd = a.nd, R = a.R;
+  const EdgeLayout L = edge_layout(nd, SEG);
+  double* enow = reinterpret_cast<double*>(sm + L.now);
+  double* eec = reinterpret_cast<double*>(sm + L.ec);
+  double* esnap = reinterpret_cast<double*>(sm + L.snap);
+  int* eg = reinterpret_cast<int*>(sm + L.g);
+  int* enf = reinterpret_cast<int*>(sm + L.nf);
+  int* elist = reinterpret_cast<int*>(sm + L.list);
+  int* ecntb = reinterpret_cast<int*>(sm + L.cntb);
+  int* enD = reinterpret_cast<int*>(sm + L.nd);
+  const int nseg = (R + SEG - 1) / SEG;
+
+  double h[NDM > 0 ? NDM : 1];
+#pragma unroll
+  for (int d = 0; d < (NDM > 0 ? NDM : 1); ++d) h[d] = (NDM > 0 && d < nd) ? a.h0[d] : 0.0;
+
+  for (int s = -1; s <= nseg; ++s) {
+    if (w == 1 && s + 1 < nseg) {  // producer: stage segment s + 1
+      const int t = s + 1, b = t % 3, r0 = t * SEG, n = min(SEG, R - r0);
+      double* nw = enow + (size_t)b * SEG;
+      int* g = eg + (size_t)b * SEG;
+      int* nf = enf + (size_t)b * SEG;
+      double* ec = eec + (size_t)b * SEG * nd;
+      for (int i = lane; i < n; i += kWarp) {
+        cp_async8(nw + i, a.nows + r0 + i);
+        cp_async4(g + i, a.guess + r0 + i);
+        if (!a.lpw) cp_async4(nf + i, a.nom_fixed + r0 + i);
+      }
+      for (int i = lane; i < n * nd; i += kWarp) cp_async8(ec + i, a.ecomp + (size_t)r0 * nd + i);
+      cp_commit();
+      cp_wait<0>();
+      __syncwarp();
+      int* lst = elist + (size_t)b * SEG;
+      int* cb = ecntb + (size_t)b * SEG;
+      int base = 0;
+      for (int t0 = 0; t0 < n; t0 += kWarp) {
+        const int i = t0 + lane;
+        const bool edge = (i < n) && g[i] == a.edge_col;
+        const unsigned m = __ballot_sync(kFull, edge);
+        const int before = base + __popc(m & ((1u << lane) - 1u));
+        if (i < n) cb[i] = before;
+        if (edge) lst[before] = i;
+        base += __popc(m);
+      }
+      if (lane == 0) enD[b] = base;
+    } else if (w == 0 && s >= 0 && s < nseg) {  // the chain: segment s's edge rows
+      if (lane == 0) {
+        const int b = s % 3, D = enD[b];
+        const double* nw = enow + (size_t)b * SEG;
+        const double* ec = eec + (size_t)b * SEG * nd;
+        const int* nf = enf + (size_t)b * SEG;
+        const int* lst = elist + (size_t)b * SEG;
+        double* sn = esnap + (size_t)b * (SEG + 1) * nd;
+        if constexpr (NDM > 0) {
+#pragma unroll
+          for (int d = 0; d < NDM; ++d)
+            if (d < nd) sn[d] = h[d];
+          // row i's inputs are loaded while row i - 1 is applied
+          int r = D > 0 ? lst[0] : 0;
+          double now = D > 0 ? nw[r] : 0.0;
+          double e[NDM];
+#pragma unroll
+          for (int d = 0; d < NDM; ++d) e[d] = (D > 0 && d < nd) ? ec[(size_t)r * nd + d] : 0.0;
+          int fixed = (D > 0 && !a.lpw) ? nf[r] : 0;
+          for (int i = 0; i < D; ++i) {
+            const int rn = lst[i + 1 < D ? i + 1 : i];
+            const double nown = nw[rn];
+            double en[NDM];
+#pragma unroll
+            for (int d = 0; d < NDM; ++d) en[d] = d < nd ? ec[(size_t)rn * nd + d] : 0.0;
+            const int fixedn = a.lpw ? 0 : nf[rn];
+            int nom = fixed;
+            if (a.lpw) {
+              nom = 0;
+              double bw = fmax(__dsub_rn(h[0], now), 0.0);
+#pragma unroll
+              for (int d = 1; d < NDM; ++d) {
+                const double wd = fmax(__dsub_rn(h[d], now), 0.0);
+                const bool less = (d < nd) & (wd < bw);
+                nom = less ? d : nom;
+                bw = less ? wd : bw;
+              }
             }
+            double hn = h[0], ev = e[0];
+#pragma unroll
+            for (int d = 1; d < NDM; ++d) {
+              hn = d == nom ? h[d] : hn;
+              ev = d == nom ? e[d] : ev;
+            }
+            const double v = __dadd_rn(fmax(hn, now), ev);
+            double* out = sn + (size_t)(i + 1) * nd;
+#pragma unroll
+            for (int d = 0; d < NDM; ++d) {
+              h[d] = d == nom ? v : h[d];
+              if (d < nd) out[d] = h[d];
+            }
+            now = nown;
+#pragma unroll
+            for (int d = 0; d < NDM; ++d) e[d] = en[d];
+            fixed = fixedn;
           }
         } else {
-          best = s_nf[i];
+          if (s == 0)
+            for (int d = 0; d < nd; ++d) sn[d] = a.h0[d];
+          else  // the last snapshot of the previous segment
+            for (int d = 0; d < nd; ++d)
+              sn[d] = esnap[(size_t)((s - 1) % 3) * (SEG + 1) * nd +
+                            (size_t)enD[(s - 1) % 3] * nd + d];
+          for (int i = 0; i < D; ++i) {
+            const int r = lst[i];
+            const double now = nw[r];
+            const double* prev = sn + (size_t)i * nd;
+            double* out = sn + (size_t)(i + 1) * nd;
+            const int nom = a.lpw ? least_wait(prev, nd, now) : nf[r];
+            for (int d = 0; d < nd; ++d) out[d] = prev[d];
+            out[nom] = __dadd_rn(fmax(prev[nom], now), ec[(size_t)r * nd + nom]);
+          }
         }
-        for (int d = 0; d < nd; ++d) hb[r * nd + d] = h[d];
-        nom[r] = best;
-        if (s_g[i] == edge_col) h[best] = __dadd_rn(fmax(h[best], now), s_ec[i * nd + best]);
       }
+    } else if (w >= 2 && s >= 1) {  // writers: hb and nom of segment s - 1
+      const int t = s - 1, b = t % 3, r0 = t * SEG, n = min(SEG, R - r0);
+      const int wt = tid - 2 * kWarp, nwt = (int)blockDim.x - 2 * kWarp;
+      const double* nw = enow + (size_t)b * SEG;
+      const int* nf = enf + (size_t)b * SEG;
+      const int* cb = ecntb + (size_t)b * SEG;
+      const double* sn = esnap + (size_t)b * (SEG + 1) * nd;
+      for (int e = wt; e < n * nd; e += nwt) {
+        const int i = e / nd, d = e - i * nd;
+        a.hb[(size_t)r0 * nd + e] = sn[(size_t)cb[i] * nd + d];
+      }
+      for (int i = wt; i < n; i += nwt)
+        a.nom[r0 + i] = a.lpw ? least_wait(sn + (size_t)cb[i] * nd, nd, nw[i]) : nf[i];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    if constexpr (NDM > 0) {
+#pragma unroll
+      for (int d = 0; d < NDM; ++d)
+        if (d < nd) a.h_fin[d] = h[d];
+    } else {
+      const int b = (nseg - 1) % 3;
+      for (int d = 0; d < nd; ++d)
+        a.h_fin[d] = esnap[(size_t)b * (SEG + 1) * nd + (size_t)enD[b] * nd + d];
     }
   }
-  __syncwarp();
-  for (int d = lane; d < nd; d += kWarp) h_fin[d] = h[d];
 }
 
-__global__ void state_replay_kernel(
-    const double* nows, const int* guess, int R,
-    int nd, int lpw, int edge_col, const double* ecomp, const double* h0,
-    const int* nom_fixed, double* hb, int* nom, double* h_fin,
-    int nc, int cap, double t_idl, const double* occw, const double* occc,
-    const double* busy0, const double* last0, const int* cnt0, unsigned char* cold,
-    double* busyF, double* lastF, int* cntF, int* ovf) {
-  extern __shared__ __align__(16) double smem_d[];
-  if ((int)blockIdx.x < nc) {
-    cil_block(blockIdx.x, nows, guess, R, nc, cap, t_idl, occw, occc, busy0, last0, cnt0,
-              cold, busyF, lastF, cntF, ovf, smem_d);
-  } else {
-    edge_block(nows, guess, R, nd, lpw, edge_col, ecomp, h0, nom_fixed, hb, nom, h_fin,
-               smem_d);
+template <int NDM, int S>
+__global__ void __launch_bounds__(kWarp * (1 + REPLAY_MAX_SPLIT + REPLAY_GAP_WARPS))
+    state_replay_kernel(ReplayArgs a) {
+  extern __shared__ __align__(16) unsigned char rsm[];
+  if ((int)blockIdx.x < a.nc)
+    replay_pool_block<S>(blockIdx.x, a, rsm);
+  else
+    replay_edge_block<NDM>(a, rsm);
+}
+
+using ReplayKernel = decltype(&state_replay_kernel<4, 1>);
+
+template <int S>
+ReplayKernel replay_kernel_nd(int nd) {
+  return nd <= 4 ? state_replay_kernel<4, S>
+                 : (nd <= 32 ? state_replay_kernel<32, S> : state_replay_kernel<0, S>);
+}
+
+// the instantiation for the fleet (horizons in registers up to 32 devices)
+// and the scan split (1, 2 or 4 warps a pool)
+ReplayKernel replay_kernel(int nd, int split) {
+  return split == 1 ? replay_kernel_nd<1>(nd)
+                    : (split == 2 ? replay_kernel_nd<2>(nd) : replay_kernel_nd<4>(nd));
+}
+
+__host__ __device__ inline bool replay_split_ok(int split) {
+  return split == 1 || split == 2 || split == 4;
+}
+
+// the replay's chain floor: `steps` hand-offs of a float64 from one thread to
+// every warp of a group, one named barrier each (as the config blocks' chain
+// crosses one a dispatch)
+__global__ void replay_chain_floor_kernel(double inc, int steps, double* out) {
+  __shared__ double v[2];
+  const int tid = threadIdx.x, w = tid / kWarp;
+  if (tid == 0) v[0] = v[1] = 0.0;
+  __syncthreads();
+  double fold = 0.0;
+  for (int k = 0; k < steps; ++k) {
+    if (tid == 0) v[k & 1] = __dadd_rn(v[(k & 1) ^ 1], inc);
+    group_sync(blockDim.x);
+    fold = __dadd_rn(fold, v[k & 1]);
   }
+  if (tid % kWarp == 0) out[1 + w] = fold;
+  if (tid == 0) out[0] = v[(steps - 1) & 1];
 }
 
 // ---------------------------------------------------------------------------
@@ -291,32 +728,6 @@ __host__ __device__ inline int walk_block_warps(int nc) {
   int W = 2;
   while (walk_scanner_of(W) < need) ++W;  // warps 0 .. W-1 hold `need` scanners
   return W;
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// a key whose unsigned order is the order of the doubles; -0 is read as +0,
-// so equal doubles have equal keys. 0 is below every double's key: no slot.
-__device__ __forceinline__ unsigned long long okey(double x) {
-  const long long u = __double_as_longlong(__dadd_rn(x, 0.0));
-  return u < 0 ? ~(unsigned long long)u : ((unsigned long long)u | 0x8000000000000000ull);
 }
 
 // the warp's largest key and, among the lanes that hold it, the least slot
@@ -750,13 +1161,10 @@ int state_walk_chain_floor(double* out, double inc, int R, int warps, void* stre
   return (int)cudaGetLastError();
 }
 
-// Shared memory one block needs: the larger of a config pool and the edge tile.
-long long state_replay_smem_bytes(int nd, int nc, int cap) {
-  const long long pool = nc > 0 ? 2LL * cap * (long long)sizeof(double) : 0;
-  const long long edge =
-      nd > 0 ? (long long)(nd + kWarp + kWarp * nd) * sizeof(double) + 2LL * kWarp * sizeof(int)
-             : 0;
-  return pool > edge ? pool : edge;
+// Shared memory of one replay block: the larger of a config block's
+// (pool_layout) and the edge block's (edge_layout).
+long long state_replay_smem_bytes(int nd, int nc, int cap, int split) {
+  return replay_smem(nd, nc, cap, split);
 }
 
 int state_replay_f64(const double* nows, const int* guess, int R, int nd, int lpw,
@@ -765,18 +1173,42 @@ int state_replay_f64(const double* nows, const int* guess, int R, int nd, int lp
                      int cap, double t_idl, const double* occw, const double* occc,
                      const double* busy0, const double* last0, const int* cnt0,
                      unsigned char* cold, double* busyF, double* lastF, int* cntF, int* ovf,
-                     void* stream) {
+                     int split, void* stream) {
   const int blocks = nc + (nd > 0 ? 1 : 0);
   if (blocks == 0 || R == 0) return 0;
-  const long long bytes = state_replay_smem_bytes(nd, nc, cap);
+  if (!replay_split_ok(split)) return (int)cudaErrorInvalidValue;
+  const ReplayArgs a{nows,  guess, R,    nd,    lpw,   edge_col, ecomp, h0,    nom_fixed,
+                     hb,    nom,   h_fin, nc,   cap,   t_idl,    occw,  occc,  busy0,
+                     last0, cnt0,  cold,  busyF, lastF, cntF,    ovf,   split, replay_ring_rows(nd)};
+  const long long bytes = replay_smem(nd, nc, cap, split);
+  const ReplayKernel kernel = replay_kernel(nd, split);
   if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(state_replay_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  state_replay_kernel<<<blocks, kWarp, (size_t)bytes, (cudaStream_t)stream>>>(
-      nows, guess, R, nd, lpw, edge_col, ecomp, h0, nom_fixed, hb, nom, h_fin, nc, cap,
-      t_idl, occw, occc, busy0, last0, cnt0, cold, busyF, lastF, cntF, ovf);
+  kernel<<<blocks, kWarp * replay_warps(split), (size_t)bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The replay's launch as state_replay_f64 makes it, for the host's mirror of
+// it to be held against: out[0] warps of a block, out[1] rows of a segment,
+// out[2] scanner warps of a pool, out[3] bytes of shared memory.
+int state_replay_layout(int nd, int nc, int cap, int split, long long* out) {
+  if (!replay_split_ok(split)) return (int)cudaErrorInvalidValue;
+  out[0] = replay_warps(split);
+  out[1] = replay_ring_rows(nd);
+  out[2] = split;
+  out[3] = replay_smem(nd, nc, cap, split);
+  return 0;
+}
+
+// The replay's chain floor: one block of `warps` warps through `steps`
+// named-barrier hand-offs of a float64. out: 1 + warps doubles (thread 0's
+// running sum steps x inc, then each warp's fold).
+int state_replay_chain_floor(double* out, double inc, int steps, int warps, void* stream) {
+  if (warps < 1 || warps > 32 || steps < 1) return (int)cudaErrorInvalidValue;
+  replay_chain_floor_kernel<<<1, kWarp * warps, 0, (cudaStream_t)stream>>>(inc, steps, out);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,11 @@ computation (dt = 0 there).
 
 The kernel reads strided views with a contiguous last dimension (dt: any
 strides), so the model's (b, S, H, hd) tensors and the B and C slices of its
-projection pass in without copies, and ``out`` may be such a view too.
+projection pass in without copies, and ``out`` may be such a view too. A
+prompt of one chunk of at most 64 rows (the serving prefill) is one launch
+with no workspace; a longer one runs its chunks in parallel in three
+launches over a float32 workspace of every chunk's state (``ssd_route``,
+``work_floats``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 MAX_CHUNK = 128
+SINGLE_MAX_ROWS = 64  # the longest one-chunk prompt that takes one launch
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -83,6 +88,27 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
     return y.to(x.dtype), h
 
 
+def ssd_route(S: int, chunk: int = 128) -> str:
+    """How the kernel runs a prompt of S rows (mirrors ``single_chunk`` in
+    the CUDA source): ``"single"``, one launch straight from the chunk, when
+    the prompt is one chunk of at most ``SINGLE_MAX_ROWS`` rows; else
+    ``"chunked"``, three launches (chunk states, the carry over chunks, the
+    outputs) over a workspace."""
+    Q = min(chunk, S)
+    return "single" if S <= Q <= SINGLE_MAX_ROWS else "chunked"
+
+
+def work_floats(b: int, H: int, S: int, hd: int, ds: int,
+                chunk: int = 128) -> int:
+    """Floats of the kernel's workspace (mirrors ``ssd_scan_work_floats``):
+    none on the single route, else every chunk's (hd, ds) state and total
+    decay per (batch, head)."""
+    if ssd_route(S, chunk) == "single":
+        return 0
+    nch = -(-S // min(chunk, S))
+    return b * nch * H * hd * ds + b * H * nch
+
+
 def _check(x, dt, A, B, C, out, Q):
     if x.dtype not in _SUFFIX:
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {x.dtype}")
@@ -120,7 +146,8 @@ def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None):
     Returns (y, final state); y is ``out`` when given.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``ssd_scan_{f32,bf16}`` or raise."""
+    ``ssd_scan_{f32,bf16}`` (one kernel on the single route, three on the
+    chunked one: one call, one count) or raise."""
     if x.device.type == "cpu":
         y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         return (y if out is None else out.copy_(y)), state
@@ -131,13 +158,17 @@ def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None):
     Q = min(chunk, S)
     _check(x, dt, A, B, C, out, Q)
     state = torch.empty((b, H, hd, ds), dtype=torch.float32, device=x.device)
+    nw = work_floats(b, H, S, hd, ds, chunk)
+    work = torch.empty(nw, dtype=torch.float32, device=x.device) if nw \
+        else None
     vals = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
             *out.stride()[:3]]
     P, I32 = _build.P, _build.I32
     fn = _build.function("ssd_scan", f"ssd_scan_{_SUFFIX[x.dtype]}",
-                         [P] * 7 + [I32] * 6 + [P, P])
+                         [P] * 8 + [I32] * 6 + [P, P])
     rc = fn(_build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
-            _build.ptr(C), _build.ptr(out), _build.ptr(state), b, H, S, hd, ds,
+            _build.ptr(C), _build.ptr(out), _build.ptr(state), _build.ptr(work),
+            b, H, S, hd, ds,
             Q, (ctypes.c_longlong * len(vals))(*vals), _build.stream_of(x))
     _build.check(rc, "ssd_scan")
     _build.counted(ssd_scan_bhsd)

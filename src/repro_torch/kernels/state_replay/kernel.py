@@ -9,6 +9,10 @@ nominated device (``nom``), the per-config cold flags (``cold`` (R, nc)),
 and the final state: horizons ``h_fin`` (nd,), pools ``busy``/``last``
 (nc, cap), live-slot counts ``cnt`` (nc,) and per-config ``overflow`` (nc,)
 (a cold start found its pool full; the caller grows the pool and replays).
+Its kernel runs one block per config pool and one for the edge horizons;
+each block's chain holds only the rows that change its state (the config's
+dispatch rows, the edge rows), and the other rows' flags and horizons are
+filled in parallel beside it.
 
 ``state_walk`` is the sequential decision walk over the same state: it
 DECIDES each row from the exact state the rows before it left (balancer
@@ -49,11 +53,64 @@ class ReplayOut(NamedTuple):
     overflow: torch.Tensor  # (nc,) int32
 
 
-def smem_bytes(nd: int, nc: int, cap: int) -> int:
-    """Shared memory per block (mirrors ``state_replay_smem_bytes``)."""
-    pool = 16 * cap if nc else 0
-    edge = 8 * (nd + _WARP + _WARP * nd) + 8 * _WARP if nd else 0
+REPLAY_MAX_ROWS = 1024           # rows of a replay segment at most
+REPLAY_EDGE_BUDGET = 128 * 1024  # bytes of the edge block's three segment buffers
+REPLAY_GAP_WARPS = 4             # warps flagging the rows between dispatches
+REPLAY_SPLITS = (1, 2, 4)        # scanner warps of one pool it takes
+REPLAY_SPLIT = 2                 # ... by default (fastest on the card: PERF.md)
+
+
+def _edge_block_bytes(nd: int, seg: int) -> int:
+    """Mirrors ``edge_layout``: three buffers of nows, ecomp rows and the
+    horizon snapshots (seg + 1 of them) in float64, then codes, fixed
+    nominations, edge rows and edge counts before each row as 4-byte
+    words, and three segment counts."""
+    return 3 * seg * 8 * (1 + nd) + 3 * (seg + 1) * nd * 8 + 3 * seg * 16 + 12
+
+
+def _pool_block_bytes(cap: int, seg: int, split: int) -> int:
+    """Mirrors ``pool_layout``: the (busy, last) pool, two segment buffers
+    of (occw, occc) pairs, nows, codes and dispatch rows, two segment counts
+    and the scan parts' best keys and slots for two dispatches."""
+    return 16 * cap + 2 * seg * (16 + 8 + 4 + 4) + 2 * 4 + 2 * split * (8 + 4)
+
+
+def replay_ring_rows(nd: int) -> int:
+    """Rows of a replay segment (mirrors ``replay_ring_rows``): the largest
+    power of two up to ``REPLAY_MAX_ROWS`` whose edge buffers fit
+    ``REPLAY_EDGE_BUDGET``."""
+    seg = REPLAY_MAX_ROWS
+    while seg > 1 and _edge_block_bytes(nd, seg) > REPLAY_EDGE_BUDGET:
+        seg //= 2
+    return seg
+
+
+def replay_warps(split: int = REPLAY_SPLIT) -> int:
+    """Warps of a replay block (mirrors ``replay_warps``): ``split``
+    scanners, the producer and the gap warps."""
+    return 1 + split + REPLAY_GAP_WARPS
+
+
+def smem_bytes(nd: int, nc: int, cap: int, split: int = REPLAY_SPLIT) -> int:
+    """Shared memory per replay block (mirrors ``state_replay_smem_bytes``):
+    the larger of a config block's and the edge block's."""
+    seg = replay_ring_rows(nd)
+    pool = _pool_block_bytes(cap, seg, split) if nc else 0
+    edge = _edge_block_bytes(nd, seg) if nd else 0
     return max(pool, edge)
+
+
+def replay_launch_layout(nd: int, nc: int, cap: int,
+                         split: int = REPLAY_SPLIT) -> tuple[int, int, int, int]:
+    """``(warps, ring_rows, split, smem_bytes)`` of the replay's launch as
+    the built library makes it (``state_replay_layout``, from the same C
+    helpers as ``state_replay_f64``); ``chip_smoke.py`` and the card tests
+    hold the mirrors above to it."""
+    out = (ctypes.c_longlong * 4)()
+    fn = _build.function("state_replay", "state_replay_layout",
+                         [_build.I32] * 4 + [_build.P])
+    _build.check(fn(nd, nc, cap, split, out), "state_replay_layout")
+    return tuple(int(x) for x in out)
 
 
 def _shapes(nows, ecomp, busy0):
@@ -141,17 +198,18 @@ def state_replay_plain(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
 def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
                  lpw=False, edge_col=-1, occw=None, occc=None, busy0=None,
                  last0=None, cnt0=None, t_idl: float = 0.0,
-                 out=None) -> ReplayOut:
+                 out=None, split: int = REPLAY_SPLIT) -> ReplayOut:
     """One replay pass; see the module docstring. ``ecomp``/``h0`` (and
     ``nom_fixed`` unless ``lpw``) describe the edge fleet, ``occw``/``occc``/
     ``busy0``/``last0``/``cnt0`` the container pools; leave either group
     ``None`` when the engine has no edge fleet / no cloud config. ``out``
     may carry ``(busy, last, cnt)`` buffers for the final pools, reused
-    across passes and chunks.
+    across passes and chunks; ``split`` is the number of warps that scan
+    each pool (one of ``REPLAY_SPLITS``).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``state_replay_f64`` (one warp-sized block per config pool plus one for
-    the edge horizons) or raise."""
+    ``state_replay_f64`` (one block per config pool plus one for the edge
+    horizons) or raise."""
     R, nd, nc, cap = _shapes(nows, ecomp, busy0)
     if nows.device.type == "cpu":
         res = state_replay_plain(
@@ -164,12 +222,15 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
             res = res._replace(busy=out[0], last=out[1], cnt=out[2])
         return res
     device = nows.device
-    need = smem_bytes(nd, nc, cap)
+    if split not in REPLAY_SPLITS:
+        raise ValueError(f"state_replay: split must be one of "
+                         f"{REPLAY_SPLITS}, got {split}")
+    need = smem_bytes(nd, nc, cap, split)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"state_replay: a pool of {cap} container slots needs {need} B of "
             f"shared memory per block, more than the {SMEM_LIMIT} B a Hopper "
-            "block can hold (cap <= 14,000)")
+            "block can hold")
 
     def req(t, name, dtype, shape):
         if t is None or t.dtype != dtype or t.device != device \
@@ -211,7 +272,7 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
     fn = _build.function(
         "state_replay", "state_replay_f64",
         [P, P, I32, I32, I32, I32, P, P, P, P, P, P, I32, I32, F64]
-        + [P] * 11)
+        + [P] * 10 + [I32, P])
     ptr = _build.ptr
     rc = fn(ptr(nows), ptr(guess), R, nd, int(bool(lpw)), int(edge_col),
             ptr(ecomp if nd else None), ptr(h0 if nd else None),
@@ -220,7 +281,7 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
             ptr(occw if nc else None), ptr(occc if nc else None),
             ptr(busy0 if nc else None), ptr(last0 if nc else None),
             ptr(cnt0 if nc else None), ptr(cold), ptr(busy), ptr(last),
-            ptr(cnt), ptr(overflow), _build.stream_of(nows))
+            ptr(cnt), ptr(overflow), int(split), _build.stream_of(nows))
     _build.check(rc, "state_replay")
     _build.counted(state_replay)
     return ReplayOut(hb, nom, h_fin, cold, busy, last, cnt, overflow)

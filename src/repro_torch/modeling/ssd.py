@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.modeling.layers import rms_norm
 from repro_torch.modeling.module import ParamSpec
 from repro_torch.modeling.rglru import causal_conv1d
@@ -122,20 +123,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
 
 def ssd_naive(x, dt, A, B, C):
-    """The literal recurrence (float32), the oracle. Same shapes as
-    ``ssd_chunked``; y is float32."""
-    b, S, nh, hd = x.shape
-    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
-    h = torch.zeros((b, nh, hd, B.shape[-1]), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for t in range(S):
-        decay = torch.exp(dtf[:, t] * A)[:, :, None, None]
-        upd = (dtf[:, t][:, :, None] * xf[:, t])[..., None] \
-            * Bf[:, t][:, None, None, :]
-        h = h * decay + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
-    return torch.stack(ys, dim=1), h
+    """The literal recurrence (float32), the oracle: ``ssd_ref`` on x in
+    float32. Same shapes as ``ssd_chunked``; y is float32."""
+    return ssd_ref(x.float(), dt, A, B, C)
 
 
 def softplus(x):

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+from torch.overrides import TorchFunctionMode
 
 import repro.core.decision as ref_decision
 import repro_torch.core.decision as decision_mod
@@ -256,6 +257,81 @@ def test_pool_grow_and_retry(setup, monkeypatch):
     assert core.pool_regrows >= 2 and len(compactions) >= 1
     assert 1 < rt.engine.torch_stats["pool_cap"] <= core.cap_limit
     assert rt.stream_stats["residency"]["state_syncs"] == 1
+
+
+def test_regrowing_stream_keeps_parity_with_one_verdict_copy_per_walk(
+        setup, monkeypatch):
+    """A stream whose pools overflow (one-slot seeds, chunks of 64) stays
+    bit-identical to the numpy oracle, and every walk, the ones discarded
+    for an overflow included, brings its verdict to the host in one copy."""
+    monkeypatch.setattr(torch_core, "POOL_MIN_CAP", 1)
+    ref_rt, rt = _runtimes(setup)
+    ref_tasks, tasks = _bursty(setup, 600, seed=5)
+    ref = ref_rt.serve_stream(ref_tasks, chunk_size=64)
+    res = rt.serve_stream(tasks, chunk_size=64, array_backend="torch")
+    assert_records_equal(res.records, ref.records)
+    core = torch_core.core_for(rt.engine)
+    assert core.pool_regrows >= 1
+    chunks = -(-len(tasks) // 64)
+    assert core.verify_syncs == chunks + core.pool_regrows
+
+
+# tensor methods that bring a value to the host (a sync on a card)
+HOST_READS = ("__bool__", "item", "tolist", "cpu", "numpy", "__int__",
+              "__float__", "__index__")
+
+
+class _HostReads(TorchFunctionMode):
+    """Records the host reads of tensors made outside the kernel wrappers
+    (whose plain versions read their CPU tensors freely)."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads: list[str] = []
+        self.in_kernel = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in HOST_READS and not self.in_kernel:
+            self.reads.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+def test_chunk_verification_makes_one_host_sync(setup, monkeypatch):
+    """``_walk_and_verify`` reads the device once per chunk: the walk's
+    overflow flag, the verdict and the pools' largest count come to the
+    host in one copy, outside the kernels."""
+    mode = _HostReads()
+    for name in ("state_walk", "state_replay", "prefix_sum"):
+        fn = getattr(torch_core, name)
+
+        def outside(*args, _fn=fn, **kwargs):
+            mode.in_kernel += 1
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                mode.in_kernel -= 1
+
+        monkeypatch.setattr(torch_core, name, outside)
+    verify = torch_core.TorchPlacementCore._walk_and_verify
+    per_call = []
+
+    def watched(self, *args):
+        mode.reads = []
+        with mode:
+            out = verify(self, *args)
+        per_call.append(list(mode.reads))
+        return out
+
+    monkeypatch.setattr(torch_core.TorchPlacementCore, "_walk_and_verify",
+                        watched)
+    ref_rt, rt = _runtimes(setup)
+    ref_tasks, tasks = _bursty(setup, 300)
+    ref = ref_rt.serve_stream(ref_tasks, chunk_size=100)
+    res = rt.serve_stream(tasks, chunk_size=100, array_backend="torch")
+    assert_records_equal(res.records, ref.records)
+    assert len(per_call) >= 3
+    assert all(reads == ["tolist"] for reads in per_call), per_call
 
 
 def test_walk_mismatch_raises(setup, monkeypatch):

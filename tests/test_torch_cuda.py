@@ -20,6 +20,8 @@ The replay-input helpers are shared with ``tests/test_torch_kernels.py``.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -209,6 +211,17 @@ def _row_rel_err(got, want):
     return ratio.max().item()
 
 
+@contextlib.contextmanager
+def _one_cpu_thread():
+    """The CPU oracle's sums in one fixed order: one intra-op thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_on_card(cuda_device, rng, dtype):
@@ -228,11 +241,16 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
              (1, 50, 6, 3, 80, False, 17), (1, 200, 8, 2, 80, True, 0),
              (2, 150, 8, 2, 256, True, 64), (1, 40, 4, 2, 20, True, 0),
              (2, 9, 2, 1, 1, False, 0)]
+    # nothing of an earlier test may still run on the card, and the oracle
+    # sums in one fixed order on one CPU thread
+    torch.cuda.synchronize()
     for B, S, H, Hkv, D, causal, window in cases:
         q = torch.as_tensor(rng.normal(size=(B, H, S, D)), dtype=dtype)
         k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
         v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
-        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        with _one_cpu_thread():
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
         before = flash_attention_bhsd.launches
         got = flash_attention_bhsd(q.to(cuda_device), k.to(cuda_device),
                                    v.to(cuda_device), causal=causal,
@@ -240,6 +258,14 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
         torch.cuda.synchronize()
         assert flash_attention_bhsd.launches == before + 1
         err = (got.cpu().float() - want.float()).abs().max().item()
+        if err > ATTN_TOL[dtype] and window == 0:
+            exact = _softmax_f64(q, k, v, causal)
+            pytest.fail(
+                f"{(B, S, H, Hkv, D, causal)}: kernel vs plain {err}; "
+                f"against a float64 softmax the kernel reads "
+                f"{float((got.cpu().double() - exact).abs().max())}, the "
+                f"CPU plain version "
+                f"{float((want.double() - exact).abs().max())}")
         assert err <= ATTN_TOL[dtype], (B, S, H, Hkv, D, causal, window, err)
         # the (B, S, H, D) layout through strided views
         qs, ks, vs = (t.transpose(1, 2).contiguous().to(cuda_device)
@@ -534,6 +560,22 @@ def test_ssd_scan_on_card(cuda_device, rng, dtype):
         ys, ss = ssd(x.transpose(1, 2).contiguous(),
                      dt.transpose(1, 2).contiguous(), A, B, C, chunk=chunk)
         assert torch.equal(ys.transpose(1, 2), y) and torch.equal(ss, s)
+    if dtype == torch.float32:
+        # against the literal oracle at S = 300 (3 chunks): within the gap
+        # the plain version itself has to ssd_ref on the CPU, plus a margin
+        # of 1e-4, the kernel's own limit against the plain version
+        from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+        x, dt, A, B, C = ssd_inputs(rng, 1, 48, 300, 64, 128, dtype)
+        model = (x.transpose(1, 2), dt.transpose(1, 2), A, B, C)
+        ref_y, ref_s = ssd_ref(*model)
+        plain_y, plain_s = ssd_scan_plain(x, dt, A, B, C, chunk=128)
+        gap = max(max_abs(plain_y.transpose(1, 2), ref_y),
+                  max_abs(plain_s, ref_s))
+        y, s = ssd_scan_bhsd(*(t.to(cuda_device) for t in (x, dt, A, B, C)),
+                             chunk=128)
+        err = max(max_abs(y.transpose(1, 2), ref_y), max_abs(s, ref_s))
+        assert err <= gap + SSD_TOL[dtype], (err, gap)
 
 
 @pytest.mark.cuda
@@ -870,3 +912,221 @@ def test_walk_layout_mirrors_the_library_on_card(cuda_device, nd):
         mirror = (walk_warps(nc), walk_ring_rows(d, nc), walk_split(nc),
                   walk_smem_bytes(d, nc, cap))
         assert walk_launch_layout(d, nc, cap) == mirror, (d, nc, cap)
+
+
+# ------------------------------------------------------------ the replay
+REPLAY_CASES = {
+    # name: (R, nd, nc, cap, lpw, fill, code probabilities or a rule)
+    "dominant": (3000, 3, 4, 512, True, 40, "dominant"),
+    "min_cost": (3000, 3, 4, 512, True, 40, "edge"),
+    "empty_pools": (2000, 3, 4, 256, True, 0, None),
+    "full_pools": (2000, 3, 4, 16, True, 16, None),
+    "nd0": (1500, 0, 4, 256, True, 30, None),
+    "nd1": (1500, 1, 4, 256, True, 30, None),
+    "nd3_fixed": (1500, 3, 4, 256, False, 30, None),
+    "nd5": (1500, 5, 2, 128, True, 20, None),
+    "nd40": (700, 40, 2, 64, True, 20, None),
+    "nc1": (2000, 3, 1, 512, True, 100, "dominant"),
+    "nc8": (1500, 3, 8, 256, True, 30, None),
+    "nc32": (1200, 3, 32, 64, True, 20, None),
+    "ties": (2500, 3, 4, 256, True, 30, "ties"),
+}
+
+
+def _replay_case(rng, case):
+    R, nd, nc, cap, lpw, fill, rule = REPLAY_CASES[case]
+    nows, guess, kw = replay_inputs(rng, R, nd, nc, cap, lpw, fill)
+    edge_col = nc if nd else -1
+    if rule == "dominant":   # one config takes 80% of the rows
+        guess = np.where(rng.uniform(size=R) < 0.8, 0, guess)
+    elif rule == "edge":     # MinCost's codes: every row to the edge
+        guess = np.full(R, edge_col)
+    elif rule == "ties":     # coarse grids: completions (so `last`) repeat
+        nows = np.round(nows / 500.0) * 500.0
+        kw["occw"] = np.round(kw["occw"] / 100.0) * 100.0
+        kw["occc"] = kw["occw"] + 1000.0
+    if case == "full_pools":
+        kw["cnt0"] = np.full(nc, cap)
+        kw["last0"] = rng.uniform(-30_000.0, 20_000.0, size=(nc, cap))
+        kw["busy0"] = kw["last0"].copy()
+    return to_torch(nows, guess, kw)
+
+
+def _replay_on_card(tn, tg, tkw, device, split=None):
+    from repro_torch.kernels.state_replay.kernel import state_replay_plain
+
+    want = state_replay_plain(tn, tg, **tkw)
+    extra = {} if split is None else {"split": split}
+    before = state_replay.launches
+    got = state_replay(tn.to(device), tg.to(device),
+                       **{k: v.to(device) if torch.is_tensor(v) else v
+                          for k, v in tkw.items()}, **extra)
+    torch.cuda.synchronize()
+    assert state_replay.launches == before + 1
+    for field, a_, b_ in zip(got._fields, got, want):
+        assert torch.equal(a_.cpu(), b_), field
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_replay_cases_on_card(cuda_device, rng, case):
+    """The replay bit-equal to ``state_replay_plain`` in every output (hb,
+    nom, h_fin, cold, pools, counts, overflow): one config taking 80% of
+    the rows (a long dispatch chain), all-edge MinCost codes (config chains
+    empty), empty pools, full pools (every cold start overflows: no write,
+    the chain goes on), no edge fleet, one, three (fixed nominations), five
+    and forty devices (register and shared-memory horizons), one, eight and
+    32 configs, repeated completions; several segments each."""
+    tn, tg, tkw = _replay_case(rng, case)
+    want = _replay_on_card(tn, tg, tkw, cuda_device)
+    if case == "full_pools":
+        assert want.overflow.all()
+    if case == "min_cost":
+        assert not want.overflow.any() and (want.cnt == tkw["cnt0"]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_replay_scan_splits_on_card(cuda_device, rng, split):
+    """Every scan split gives the same bits (1, 2 or 4 warps a pool), on a
+    long chain over a large pool."""
+    tn, tg, tkw = _replay_case(rng, "dominant")
+    _replay_on_card(tn, tg, tkw, cuda_device, split=split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 511, 512, 513, 65536])
+def test_replay_row_counts_on_card(cuda_device, rng, rows):
+    """Row counts around the 512-row segment, and a whole chunk."""
+    nows, guess, kw = replay_inputs(rng, rows, 3, 4, 512, True, 30)
+    guess = np.where(rng.uniform(size=rows) < 0.8, 2, guess)
+    _replay_on_card(*to_torch(nows, guess, kw), cuda_device)
+
+
+@pytest.mark.cuda
+def test_replay_chain_floor_on_card(cuda_device):
+    """The replay's chain-floor probe runs its steps: thread 0's chain ends
+    at steps x inc, every warp folds each step's value."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.state_replay.kernel import replay_warps
+
+    warps, R = replay_warps() - 1, 1000
+    out = torch.empty(1 + warps, dtype=torch.float64, device=cuda_device)
+    fn = _build.function("state_replay", "state_replay_chain_floor",
+                         [_build.P, _build.F64, _build.I32, _build.I32,
+                          _build.P])
+    _build.check(fn(_build.ptr(out), 0.5, R, warps, _build.stream_of(out)),
+                 "state_replay_chain_floor")
+    torch.cuda.synchronize()
+    assert out[0].item() == 0.5 * R
+    assert (out[1:] == 0.5 * R * (R + 1) / 2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd", [0, 1, 3, 40])
+def test_replay_layout_mirrors_the_library_on_card(cuda_device, nd):
+    """The host's mirror of the replay's launch (warps, segment rows, scan
+    split, shared memory) equals what the built library computes, at every
+    config count up to 32 and every split."""
+    from repro_torch.kernels.state_replay.kernel import (
+        REPLAY_SPLITS,
+        replay_launch_layout,
+        replay_ring_rows,
+        replay_warps,
+        smem_bytes,
+    )
+
+    for nc in range(33):
+        for cap in (8, 512, 2048):
+            for split in REPLAY_SPLITS:
+                mirror = (replay_warps(split), replay_ring_rows(nd), split,
+                          smem_bytes(nd, nc, cap, split))
+                assert replay_launch_layout(nd, nc, cap, split) == mirror, (
+                    nd, nc, cap, split)
+
+
+# ------------------------------------------------------------------ K6
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 300, 4096])
+def test_ssd_scan_row_counts_on_card(cuda_device, rng, dtype, S):
+    """K6 at mamba2-780m's head shape (hd 64, ds 128, chunk 128) with S
+    around the chunk (1, Q - 1, Q, Q + 1), at 300 and 4096 rows: y and
+    state against the plain version at SSD_TOL, one launch count per
+    call on either route."""
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_plain,
+    )
+
+    args = [t.to(cuda_device) for t in ssd_inputs(rng, 1, 4, S, 64, 128,
+                                                   dtype)]
+    want_y, want_s = ssd_scan_plain(*args, chunk=128)
+    before = ssd_scan_bhsd.launches
+    y, s = ssd_scan_bhsd(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan_bhsd.launches == before + 1
+    y_err = ssd_err(y, want_y) if dtype == torch.bfloat16 \
+        else max_abs(y, want_y)
+    assert y_err <= SSD_TOL[dtype], (S, y_err)
+    assert max_abs(s, want_s) <= 1e-4, (S, max_abs(s, want_s))
+
+
+# ------------------------------------------------------------------ K4
+def _softmax_f64(q, k, v, causal):
+    """Attention in float64 on the CPU: the distance of a float32 output
+    from it is that output's own rounding."""
+    qd, kd, vd = (t.cpu().double() for t in (q, k, v))
+    B, H, S, D = qd.shape
+    G = H // kd.shape[1]
+    kd, vd = kd.repeat_interleave(G, 1), vd.repeat_interleave(G, 1)
+    s = qd @ kd.transpose(2, 3) / D ** 0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                          float("-inf"))
+    return torch.softmax(s, -1) @ vd
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_bit_stable_after_live_serve_on_card(
+        cuda_device, rng):
+    """K4 in float32 at the case that failed now and then in full card runs,
+    (B, S, H, Hkv, D) = (1, 32, 32, 8, 64) causal, launched 100 times after
+    a live serve in the same process: every output has the same bits, and
+    each lies as close to a float64 softmax as the CPU plain version."""
+    from repro_torch.core.decision import MinLatencyPolicy
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving import (
+        SliceSpec,
+        calibrate_catalog,
+        llm_workload,
+        make_live_runtime,
+    )
+
+    cfg = smoke_config("llama3.2-1b").with_updates(dtype="bfloat16")
+    cat = calibrate_catalog(cfg, [SliceSpec("s2", 2, tokens_per_step=4),
+                                  SliceSpec("s4", 4, tokens_per_step=4)],
+                            n_tasks=3, n_cold=1, seed=0, device=cuda_device)
+    rt = make_live_runtime(cat, MinLatencyPolicy(c_max=0.004, alpha=0.02),
+                           device=cuda_device)
+    assert rt.serve(llm_workload(8, rate_per_s=20.0, seed=3)).n == 8
+    q = torch.as_tensor(rng.normal(size=(1, 32, 32, 64)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(1, 8, 32, 64)), dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(size=(1, 8, 32, 64)), dtype=torch.float32)
+    qc, kc, vc = (t.to(cuda_device) for t in (q, k, v))
+    outs = [flash_attention_bhsd(qc, kc, vc, causal=True).cpu()
+            for _ in range(100)]
+    first = outs[0]
+    differ = [i for i, o in enumerate(outs) if not torch.equal(o, first)]
+    exact = _softmax_f64(q, k, v, True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    d_got = float((first.double() - exact).abs().max())
+    d_want = float((want.double() - exact).abs().max())
+    assert not differ, (differ, d_got, d_want)
+    assert float((first - want).abs().max()) <= ATTN_TOL[torch.float32], (
+        d_got, d_want)

@@ -1,13 +1,17 @@
-"""The host-side arithmetic of the flash-decode and walk kernels, on the CPU.
+"""The host-side arithmetic of the flash-decode, walk, replay and SSD-scan
+kernels, on the CPU.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``);
 what the wrappers compute before a launch is plain Python and is held here:
-K5's split rule and workspace size, the walk's shared-memory layout and the
-pool capacity the placement core derives from it.
+K5's split rule and workspace size, the walk's and the replay's
+shared-memory layouts and the pool capacity the placement core derives from
+them, and K6's route (one launch without a workspace for the serving
+prefill) and workspace size.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,8 +23,22 @@ from repro_torch.kernels.decode_attention.kernel import (
     decode_splits,
     workspace_floats,
 )
+from repro_torch.kernels.ssd_scan.kernel import (
+    ssd_route,
+    ssd_scan_bhsd,
+    ssd_scan_plain,
+    work_floats,
+)
 from repro_torch.kernels.state_replay.kernel import (
+    REPLAY_EDGE_BUDGET,
+    REPLAY_GAP_WARPS,
+    REPLAY_MAX_ROWS,
+    REPLAY_SPLIT,
+    REPLAY_SPLITS,
     SMEM_LIMIT,
+    replay_ring_rows,
+    replay_warps,
+    smem_bytes,
     WALK_RING_BUDGET,
     WALK_STAGES,
     walk_ring_rows,
@@ -133,3 +151,86 @@ def test_max_pool_cap_fits_the_block(nc):
     assert cap >= 8 and cap & (cap - 1) == 0
     assert walk_smem_bytes(3, nc, cap) <= SMEM_LIMIT
     assert walk_smem_bytes(3, nc, 2 * cap) > SMEM_LIMIT
+
+
+# ------------------------------------------------------------ the replay
+@pytest.mark.parametrize("nd", [0, 1, 3, 4, 5, 32, 33, 200])
+def test_replay_ring_rows_fit_the_edge_budget(nd):
+    """A segment is the largest power of two up to REPLAY_MAX_ROWS rows
+    whose three edge buffers (nows, ecomp rows and horizon snapshots in
+    float64, four 4-byte words a row, three counts) fit the budget."""
+    seg = replay_ring_rows(nd)
+    assert seg & (seg - 1) == 0 and 1 <= seg <= REPLAY_MAX_ROWS
+
+    def edge(rows):
+        return 3 * rows * 8 * (1 + 2 * nd) + 3 * 8 * nd + 3 * rows * 16 + 12
+
+    assert edge(seg) <= REPLAY_EDGE_BUDGET or seg == 1
+    assert seg == REPLAY_MAX_ROWS or edge(2 * seg) > REPLAY_EDGE_BUDGET
+    assert replay_ring_rows(3) == 512
+
+
+@pytest.mark.parametrize("nc", range(0, 33))
+@pytest.mark.parametrize("split", REPLAY_SPLITS)
+def test_replay_layout_mirror_over_every_config_count(nc, split):
+    """The replay's shared memory at every config count and scan split: a
+    config block's (busy, last) pool, two segment buffers ((occw, occc),
+    now, code and dispatch row a row), two dispatches' scan parts and
+    the segment counts; the edge block's three buffers; the larger of the
+    two. Config blocks are independent of nc; the pools the placement core
+    may grow to (``max_pool_cap``) always fit one block."""
+    nd = 3
+    seg = replay_ring_rows(nd)
+    cap = max_pool_cap(nd, nc) if nc else 0
+    pool = 16 * cap + 2 * seg * 32 + 8 + 2 * split * 12
+    edge = 3 * seg * 8 * (1 + 2 * nd) + 3 * 8 * nd + 3 * seg * 16 + 12
+    want = max(pool if nc else 0, edge)
+    assert smem_bytes(nd, nc, cap, split) == want
+    assert smem_bytes(nd, nc, cap, split) <= SMEM_LIMIT
+    # without an edge fleet: the config blocks alone, on 1024-row segments
+    seg0 = replay_ring_rows(0)
+    assert seg0 == REPLAY_MAX_ROWS
+    assert smem_bytes(0, nc, cap, split) == (
+        16 * cap + 2 * seg0 * 32 + 8 + 2 * split * 12 if nc else 0)
+    assert replay_warps(split) == 1 + split + REPLAY_GAP_WARPS
+
+
+def test_replay_default_launch():
+    """The stream's launch: 7 warps (2 scanners, the producer, 4 gap
+    warps), segments of 512 rows, 2048-slot pools in 110,676 B."""
+    assert REPLAY_SPLIT == 2 and replay_warps() == 7
+    assert smem_bytes(3, 4, 2048) == 110_676
+
+
+# ------------------------------------------------------------ K6's route
+@pytest.mark.parametrize("S,chunk,route", [
+    (32, 128, "single"), (1, 128, "single"), (64, 128, "single"),
+    (65, 128, "chunked"), (128, 128, "chunked"), (300, 128, "chunked"),
+    (4096, 128, "chunked"), (20, 8, "chunked"), (9, 64, "single"),
+    (16, 16, "single"), (17, 16, "chunked")])
+def test_ssd_route(S, chunk, route):
+    """One chunk of at most 64 rows runs as one launch without a workspace
+    (the serving prefill, S = 32); anything longer takes the chunk-parallel
+    passes over a workspace of every chunk's state and total decay."""
+    assert ssd_route(S, chunk) == route
+    b, H, hd, ds = 2, 48, 64, 128
+    n = work_floats(b, H, S, hd, ds, chunk)
+    if route == "single":
+        assert n == 0
+    else:
+        nch = -(-S // min(chunk, S))
+        assert n == b * nch * H * hd * ds + b * H * nch
+
+
+def test_ssd_wrapper_on_cpu_takes_the_plain_version(rng):
+    x = torch.as_tensor(rng.normal(size=(1, 3, 40, 8)), dtype=torch.float32)
+    dt = torch.as_tensor(np.abs(rng.normal(size=(1, 3, 40))) * 0.5,
+                         dtype=torch.float32)
+    A = torch.tensor([-0.5, -1.0, -0.2])
+    B = torch.as_tensor(rng.normal(size=(1, 40, 16)), dtype=torch.float32)
+    C = torch.as_tensor(rng.normal(size=(1, 40, 16)), dtype=torch.float32)
+    before = ssd_scan_bhsd.launches
+    y, st = ssd_scan_bhsd(x, dt, A, B, C, chunk=16)
+    yp, sp = ssd_scan_plain(x, dt, A, B, C, chunk=16)
+    assert torch.equal(y, yp) and torch.equal(st, sp)
+    assert ssd_scan_bhsd.launches == before

@@ -8,6 +8,8 @@ its port:
   kernel in interpret mode and its ``ref.py`` (the literal recurrence), at
   the shapes of ``tests/test_kernels.py`` (padded tail included) and with
   the state carried across 8 chunks;
+- the port's literal oracle ``kernels/ssd_scan/ref.py::ssd_ref`` against
+  ``repro``'s, and against K6's plain version;
 - ``ssd_chunked`` (the reference's XLA path) and ``ssd_naive``, the causal
   conv, the softplus, and ``ssd_block_apply`` in prefill and decode;
 - the smoke ``MambaLM`` with the JAX params carried across
@@ -43,6 +45,7 @@ from repro_torch import kernels
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhsd, ssd_scan_plain
 from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.modeling import ssd as port_ssd
 from repro_torch.modeling.convert import lm_params_from_numpy
 from repro_torch.modeling.layers import rms_norm
@@ -177,6 +180,46 @@ def test_ssd_naive_matches_reference(rng):
     yk, stk = ssd(*targs, chunk=8)
     for a, b in ((yc, y), (stc, st), (yk, y), (stk, st)):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-3, atol=1e-3)
+
+
+# the literal oracle: float32 y within 5e-5 of the JAX recurrence's (the
+# same steps, einsum sums in another order); bf16 y within one bf16 ulp of
+# max(1, |y|) (both round the same float32 value, which may sit on a
+# rounding boundary), the float32 state within 5e-5
+REF_TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
+
+
+@pytest.mark.parametrize("b,S,nh,hd,ds,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_ref_matches_reference(b, S, nh, hd, ds, chunk, dtype, rng):
+    """``ssd_ref`` against the JAX package's ``ssd_ref`` on the same seeded
+    inputs: y in x's dtype, the final state in float32."""
+    jargs, targs = _ssd_inputs(rng, b, S, nh, hd, ds, dtype)
+    y, st = ssd_ref(*targs)
+    jy, jst = jax_ssd_ref(*jargs)
+    assert y.dtype == targs[0].dtype and st.dtype == torch.float32
+    assert tuple(y.shape) == (b, S, nh, hd) and tuple(st.shape) == (b, nh, hd,
+                                                                    ds)
+    ya, yj = _np(y), _np(jy)
+    err = np.max(np.abs(ya - yj) / np.maximum(np.abs(yj), 1.0))
+    assert err <= REF_TOL[dtype], err
+    np.testing.assert_allclose(_np(st), _np(jst), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,S,nh,hd,ds,chunk", SSD_SHAPES)
+def test_ssd_ref_is_the_naive_oracle_and_holds_the_plain_kernel(
+        b, S, nh, hd, ds, chunk, rng):
+    """``ssd_naive`` is ``ssd_ref`` on float32 x (one recurrence, bit for
+    bit), and K6's plain version lies within the recurrence tolerance of
+    ``ssd_ref``."""
+    _, targs = _ssd_inputs(rng, b, S, nh, hd, ds, "float32")
+    y, st = ssd_ref(*targs)
+    yn, stn = port_ssd.ssd_naive(*targs)
+    assert torch.equal(y, yn) and torch.equal(st, stn)
+    yp, sp = ssd(*targs, chunk=chunk)
+    ytol, stol = RECURRENCE_TOL["float32"]
+    assert float((yp - y).abs().max()) < ytol
+    assert float((sp - st).abs().max()) < stol
 
 
 def test_segsum_matches_reference(rng):
@@ -394,6 +437,8 @@ def test_chunked_ssd_gap_at_full_width_head_shape(capsys):
                 xbc[..., d_inner:d_inner + ds], xbc[..., d_inner + ds:])
         y, st = ssd(*args, chunk=cfg.ssm_chunk)
         yn, stn = port_ssd.ssd_naive(*args)
+        yr, str_ = ssd_ref(*args)
+        assert torch.equal(yr, yn) and torch.equal(str_, stn)
         gap = (float((y - yn).abs().max()), float((st - stn).abs().max()))
         with capsys.disabled():
             print(f"\nchunked vs naive SSD at S={S}: y {gap[0]:.3g} (|y| up "
