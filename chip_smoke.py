@@ -27,10 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on a 65,536-row chunk of the stream (its plain version, a per-row loop,
    runs on CPU copies of the same inputs) under the walk's MinLatency codes
    and again under its MinCost codes (``min_cost_ms``), its row recording
-   each scan split's time (``split_ms``), the chain floor
+   the time of a launch told that the walk overflowed (``skip_ms``), the
+   chain floor
    (``state_replay_chain_floor``: one named-barrier hand-off of a float64
    per dispatch row of the largest config, ``chain_floor_ms``) and the
-   launch's warps, segment rows, scan split and shared memory as the
+   launch's warps, segment rows, scanners per pool and shared memory as the
    library computes them (``state_replay_layout``), which the host's mirror
    must equal; and so the sequential decision
    walk, whose codes are the replay's input there as on the main path, once
@@ -52,12 +53,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    inputs mamba2-780m's first layer gives it at full width, at the serving
    prefill (x (1, 48, 32, 64), B/C (1, 32, 128), one chunk), at S=300 (3
    chunks of 128, the last padded) and at b=2, S=4096 (32 chunks), y within
-   1e-4 in float32 and within 3e-2 of max(1, |y|) in bf16, the float32
-   state within 1e-4, and at S=300 in float32 also against the literal
-   oracle ``ssd_ref`` within the CPU plain version's own gap to it plus
-   1e-4; each shape records its route (one launch, or the three
-   chunk-parallel ones) and its bound, the bf16 one at the bf16 tensor-core
-   rate for C B^T and the float32 rate for the rest. Kernel, plain and
+   1e-4 in float32 and within 3e-2 of max(1, |y|) in bf16, in bf16 also
+   each (batch, head) row of y within 2**-6 of its largest |y|
+   (``row_err``) and the mean error within 2**-12 of the mean |y|
+   (``mean_err``; three planted faults, scores x from the hi bf16 term
+   alone, a dropped diagonal score tile and a zeroed head group, must each
+   exceed one of the two: ``fault_row_err``), the float32 state within
+   1e-4, and at S=300 in float32 also against the literal oracle
+   ``ssd_ref`` within the CPU plain version's own gap to it plus 1e-4;
+   each shape records its route (one launch, or the three chunk-parallel
+   ones) and its bound, in bf16 every product at the bf16 tensor-core rate
+   (the products with a float32 operand three times, one per bf16 term),
+   in float32 all at the float32 rate. Kernel, plain and
    library times come from CUDA events
    (the plain CPU runs of walk and replay from the host clock); the
    attention and SSD rows time each call from a CUDA graph of many calls
@@ -147,6 +154,18 @@ DEC_ROW_TOL = 2.0 ** -6
 # state within SSD_STATE_TOL
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SSD_STATE_TOL = 1e-4
+# K6's bf16 y is also held against its own scale: each (batch, head) row's
+# largest error within SSD_ROW_TOL of the row's largest |y| (2 to 4 bf16
+# ulps of it, as K5), and the mean error over y within SSD_MEAN_TOL of the
+# mean |y|. A sound kernel differs from the plain version only where their
+# float32 sums round to different bf16 neighbours, a few elements in a
+# thousand; a kernel that took scores x from the hi bf16 term alone moves
+# most elements by about one ulp (a mean error of 1.5e-3 of the mean |y|,
+# 6x SSD_MEAN_TOL, on the CPU: tests/test_torch_ssm.py), which no limit on
+# the largest error can tell from one rounding flip at a row's largest |y|.
+# The planted faults of ssd_faults show that the two limits see each fault
+SSD_ROW_TOL = 2.0 ** -6
+SSD_MEAN_TOL = 2.0 ** -12
 # card (K4, K5, K6, cuBLAS in float32, TF32 off) vs CPU logits and caches of
 # the full-width models in float32: summation order differs across 16 / 48
 # layers. For the 300-token Mamba prefill the CPU's own chunked SSD lies
@@ -702,21 +721,22 @@ def phase_kernels(ctx, dev) -> list[dict]:
     if mirror != (warps, ring_rows, split, smem):
         fail(f"the walk's host layout {mirror} differs from the library's "
              f"{(warps, ring_rows, split, smem)}")
-    r_layout = replay_launch_layout(nd, nc, cap, REPLAY_SPLIT)
-    r_mirror = (replay_warps(REPLAY_SPLIT), replay_ring_rows(nd), REPLAY_SPLIT,
-                smem_bytes(nd, nc, cap, REPLAY_SPLIT))
+    r_layout = replay_launch_layout(nd, nc, cap)
+    r_mirror = (replay_warps(), replay_ring_rows(nd), REPLAY_SPLIT,
+                smem_bytes(nd, nc, cap))
     log(f"[replay] layout (warps, segment rows, scanners per pool, shared "
         f"bytes): library {r_layout}, host mirror {r_mirror}")
     if r_mirror != r_layout:
         fail(f"the replay's host layout {r_mirror} differs from the "
              f"library's {r_layout}")
-    # each scan split on the same chunk (the default is REPLAY_SPLIT)
-    split_ms = {s_: cuda_ms(lambda: state_replay(nows, guess, split=s_,
-                                                 **replay_in), 3)
-                for s_ in (1, 2, 4)}
     replay_ms = cuda_ms(lambda: state_replay(nows, guess, **replay_in), 3)
     replay_cost_ms = cuda_ms(lambda: state_replay(nows, cost_codes,
                                                   **replay_in), 3)
+    # after a walk that overflowed a pool the replay gets its flags and
+    # returns at once (the main path's regrow walk)
+    overflowed = torch.ones(nc, dtype=torch.int32, device=dev)
+    replay_skip_ms = cuda_ms(lambda: state_replay(
+        nows, guess, skip=overflowed, **replay_in), 20)
     longest = max(codes[:nc])  # the largest config's dispatch chain
     rows.append(row(
         "state_walk", "src/repro_torch/csrc/state_replay.cu",
@@ -743,7 +763,7 @@ def phase_kernels(ctx, dev) -> list[dict]:
         chain_floor_ms=replay_chain_floor_ms(longest, r_layout[0] - 1, dev),
         chain_floor_steps=longest, warps=r_layout[0],
         ring_rows=r_layout[1], split=r_layout[2], smem_bytes=r_layout[3],
-        split_ms=split_ms, min_cost_ms=replay_cost_ms,
+        min_cost_ms=replay_cost_ms, skip_ms=replay_skip_ms,
         min_cost_plain_ms=replay_cost_plain_ms,
         min_cost_codes=np.bincount(cost_codes.cpu().numpy(),
                                    minlength=nc + 1).tolist(),
@@ -1042,10 +1062,93 @@ def ssd_layer_inputs(dev, shapes) -> tuple[dict, int]:
     return out, cfg.ssm_chunk
 
 
+def ssd_y_errs(got, want) -> tuple[float, float]:
+    """The largest, over (batch, head) rows of y (b, H, S, hd), of the
+    row's max |got - want| over its max |want| (inf where a zero row of
+    ``want`` is not matched exactly); and the mean |got - want| over the
+    mean |want|."""
+    import torch
+
+    b, H = want.shape[:2]
+    g, w = (t.double().cpu().reshape(b * H, -1) for t in (got, want))
+    err, scale = (g - w).abs(), w.abs()
+    e, m = err.amax(-1), scale.amax(-1)
+    ratio = torch.where(m > 0, e / m.clamp_min(1e-300),
+                        torch.where(e > 0, float("inf"), 0.0))
+    mean = float(err.mean() / scale.mean()) if float(scale.mean()) > 0 \
+        else (0.0 if float(err.max()) == 0 else float("inf"))
+    return float(ratio.max()), mean
+
+
+def ssd_planted(x, dt, A, B, C, chunk, fault):
+    """y of ``ssd_scan_plain``'s math with one fault of the bf16 kernel
+    planted: ``hi_only`` takes scores x from the scores' hi bf16 term alone;
+    ``drop_tile`` drops the last 16 x 8 score tile on the diagonal of every
+    chunk; ``zero_group`` writes 0 for the first group of 8 heads."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.kernel import NEG_INF
+
+    b, H, S, hd = x.shape
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    if pad:
+        xf, Bf, Cf = (F.pad(t, (0, 0, 0, pad)) for t in (xf, Bf, Cf))
+        dtf = F.pad(dtf, (0, pad))
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    mb = max((Q + 15) // 16 - 1, 0)  # the last 16-row block of a chunk
+    r0, c0 = 16 * mb, min(8 * (2 * mb + 1), max(Q - 8, 0))
+    h = torch.zeros((b, H, hd, B.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for k in range(0, S + pad, Q):
+        xc, dtc = xf[:, :, k:k + Q], dtf[:, :, k:k + Q]
+        bc, cc = Bf[:, k:k + Q], Cf[:, k:k + Q]
+        cum = torch.cumsum((dtc * A.float()[None, :, None]).double(),
+                           -1).float()
+        total = cum[..., -1:]
+        L = torch.exp(torch.where(causal, cum[..., :, None]
+                                  - cum[..., None, :], NEG_INF))
+        sc = (cc @ bc.transpose(1, 2))[:, None] * L * dtc[..., None, :]
+        if fault == "hi_only":
+            sc = sc.bfloat16().float()
+        elif fault == "drop_tile":
+            sc[..., r0:r0 + 16, c0:c0 + 8] = 0.0
+        ys.append(sc @ xc + (cc[:, None] @ h.transpose(2, 3))
+                  * torch.exp(cum)[..., None])
+        w = dtc * torch.exp(total - cum)
+        h = h * torch.exp(total)[..., None] \
+            + (xc * w[..., None]).transpose(2, 3) @ bc[:, None]
+    y = torch.cat(ys, 2)[:, :, :S]
+    if fault == "zero_group":
+        y[:, :8] = 0.0
+    return y.to(x.dtype)
+
+
+def ssd_faults(x, dt, A, B, C, chunk, got) -> dict:
+    """K6's bf16 limits on y against three planted faults, read on the
+    card: each fault's y, computed plainly on the card, held against the
+    kernel's own ([row error, mean error]). Fails if a fault lies within
+    both limits."""
+    out = {}
+    for fault in ("hi_only", "drop_tile", "zero_group"):
+        r_max, r_mean = ssd_y_errs(
+            ssd_planted(x, dt, A, B, C, chunk, fault), got)
+        out[fault] = [r_max, r_mean]
+        if r_max <= SSD_ROW_TOL and r_mean <= SSD_MEAN_TOL:
+            fail(f"K6's bf16 limits {SSD_ROW_TOL} (row) and {SSD_MEAN_TOL} "
+                 f"(mean) would pass a kernel with the planted fault "
+                 f"{fault} (errors {r_max} / {r_mean})")
+    return out
+
+
 def ssd_case(args, dtype, chunk, reps, ref=False) -> dict:
     """K6 vs its plain version at one shape, called as ``ops.ssd`` calls it
-    (strided views of the model's tensors in, a transposed view out); with
-    ``ref`` also against the literal oracle ``ssd_ref``."""
+    (strided views of the model's tensors in, a transposed view out); in
+    bf16 also per row of y, against planted faults; with ``ref`` also
+    against the literal oracle ``ssd_ref``."""
     import torch
 
     from repro_torch.kernels.ssd_scan.kernel import (
@@ -1068,21 +1171,22 @@ def ssd_case(args, dtype, chunk, reps, ref=False) -> dict:
                    / yp.double().abs().clamp_min(1.0)).max())
     s_err = max_err(st, sp)
     b, H, S, hd = x.shape
-    if (y_rel if dtype == torch.bfloat16 else err) > SSD_TOL[name] \
-            or s_err > SSD_STATE_TOL:
+    bf16 = dtype == torch.bfloat16
+    row_max, mean = ssd_y_errs(y, yp) if bf16 else (0.0, 0.0)
+    if (y_rel if bf16 else err) > SSD_TOL[name] or s_err > SSD_STATE_TOL \
+            or row_max > SSD_ROW_TOL or mean > SSD_MEAN_TOL:
         fail(f"K6 b={b} S={S} {name} differs from its plain version: y "
-             f"{err} ({y_rel} of max(1, |y|)), state {s_err}")
+             f"{err} ({y_rel} of max(1, |y|); {row_max} of a row's largest "
+             f"|y|; mean {mean} of the mean |y|), state {s_err}")
     ds, Q = B.shape[-1], min(chunk, S)
-    tc_ops = f32_ops = 0.0  # C B^T (tensor cores in bf16); the rest, float32
+    score_ops = prod_ops = 0.0  # C B^T; the products with a float32 operand
     for r0 in range(0, S, Q):
         qc = min(Q, S - r0)
         tri = qc * (qc + 1) / 2              # the (q, s <= q) pairs
-        tc_ops += b * 2 * tri * ds            # C B^T, shared by the heads
-        f32_ops += b * H * (2 * tri * hd + 2 * qc * hd * ds)  # scores x, state
+        score_ops += b * 2 * tri * ds         # C B^T, shared by the heads
+        prod_ops += b * H * (2 * tri * hd + 2 * qc * hd * ds)  # scores x, state
         if r0:                                # the carried state's part of y
-            f32_ops += b * H * 2 * qc * hd * ds
-    if dtype != torch.bfloat16:
-        f32_ops, tc_ops = f32_ops + tc_ops, 0.0
+            prod_ops += b * H * 2 * qc * hd * ds
     nbytes = x.element_size() * (2 * x.numel() + B.numel() + C.numel()) \
         + 4 * (dt.numel() + A.numel() + st.numel())
     kernel = lambda: ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk,  # noqa: E731
@@ -1093,9 +1197,12 @@ def ssd_case(args, dtype, chunk, reps, ref=False) -> dict:
                           max(reps // 10, 2)),
         err=err, y_rel_err=y_rel, state_err=s_err, route=ssd_route(S, chunk),
         y_max=float(yp.float().abs().max()), nbytes=nbytes,
-        ops=tc_ops + f32_ops,
+        ops=score_ops + prod_ops,
         **dict(zip(("bound_ms", "bound_by"),
-                   ssd_bound(nbytes, tc_ops, f32_ops))))
+                   ssd_bound(nbytes, score_ops, prod_ops, bf16))))
+    if bf16:
+        out_.update(row_err=row_max, mean_err=mean,
+                    fault_row_err=ssd_faults(x, dtt, A, B, C, chunk, y))
     if ref:
         # against the literal oracle: within the plain version's own gap to
         # ssd_ref on the CPU (the same inputs), plus the kernel's limit
@@ -1117,13 +1224,17 @@ def ssd_case(args, dtype, chunk, reps, ref=False) -> dict:
     return out_
 
 
-def ssd_bound(nbytes: float, tc_ops: float, f32_ops: float):
+def ssd_bound(nbytes: float, score_ops: float, prod_ops: float,
+              bf16: bool):
     """K6's bound: the bytes over HBM's rate, or the operations at their
-    rates (C B^T at the bf16 tensor-core rate, the float32 products at the
-    float32 rate), whichever is larger."""
+    rate, whichever is larger. In bf16 every product runs on the tensor
+    cores, at the bf16 rate: C B^T from exact bf16 operands, the products
+    with a float32 operand as three bf16 products each (the operand split
+    into hi, mid and lo terms, what float32 accuracy takes there). In
+    float32 all of them run at the float32 CUDA-core rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (tc_ops / PEAK_OPS["bfloat16"] + f32_ops / PEAK_OPS["float32"]) \
-        * 1e3
+    t_ops = ((score_ops + 3 * prod_ops) / PEAK_OPS["bfloat16"] if bf16
+             else (score_ops + prod_ops) / PEAK_OPS["float32"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1143,7 +1254,11 @@ def phase_ssd(dev) -> list[dict]:
              "b2_s4096_f32": ssd_case(inputs[(2, 4096)], f32, chunk, 5)}
     extra = {f"{tag}_{key}": c[key] for tag, c in cases.items()
              for key in ("ms", "plain_ms", "err", "y_rel_err", "state_err",
-                         "route", "bound_ms", "bound_by")}
+                         "route", "bound_ms", "bound_by", "row_err",
+                         "mean_err", "fault_row_err") if key in c}
+    extra.update(row_tol=SSD_ROW_TOL, mean_tol=SSD_MEAN_TOL,
+                 **{k: path[k] for k in ("row_err", "mean_err",
+                                         "fault_row_err")})
     extra.update({f"s300_f32_{k}": cases["s300_f32"][k]
                   for k in ("ref_err", "ref_gap", "ref_limit")})
     extra["eager_ms"] = path["eager_ms"]
@@ -1158,9 +1273,10 @@ def phase_ssd(dev) -> list[dict]:
                     "last padded); b2_s4096: b=2, S=4096, 32 chunks (three "
                     "launches each); inputs from mamba2-780m's first layer "
                     "at full width",
-              rate="bf16: C B^T at the bf16 tensor-core rate, the float32 "
-                   "products at the float32 rate; f32: all at the float32 "
-                   "rate", bound_at=(path["bound_ms"], path["bound_by"]),
+              rate="bf16: every product at the bf16 tensor-core rate, the "
+                   "products with a float32 operand counted three times "
+                   "(three bf16 terms); f32: all at the float32 rate",
+              bound_at=(path["bound_ms"], path["bound_by"]),
               **extra)]
 
 
@@ -1429,8 +1545,10 @@ def phase_serve(ctx, dev) -> dict:
             f"launches {json.dumps(counts)}, "
             f"residency {json.dumps(r)}, pool regrows "
             f"{_core(rt).pool_regrows} (pool cap "
-            f"{rt.engine.torch_stats['pool_cap']}), vs oracle "
-            f"{json.dumps(cmp)}")
+            f"{rt.engine.torch_stats['pool_cap']}; the replays after those "
+            f"walks return at once, so "
+            f"{counts['state_replay'] - _core(rt).pool_regrows} replays "
+            f"run), vs oracle {json.dumps(cmp)}")
         if r["chunk_commits"] or r["fallback_syncs"] or r["fallback_chunks"] \
                 or r["state_syncs"] != 1 or r["resident_chunks"] != 4:
             fail(f"{name}: residency counters {r}")

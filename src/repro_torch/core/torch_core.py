@@ -389,9 +389,11 @@ class TorchPlacementCore:
         return out
 
     # ------------------------------------------------------------ one pass
-    def _state(self, guess: torch.Tensor, P: dict, S: dict) -> dict:
+    def _state(self, guess: torch.Tensor, P: dict, S: dict,
+               skip=None) -> dict:
         """One full state replay of the chunk under the speculated codes
-        ``guess`` and the policy-view matrices it induces."""
+        ``guess`` and the policy-view matrices it induces; a set flag in
+        ``skip`` (the walk's overflow) leaves the replay undone."""
         nows, rr = P["nows"], P["rr"]
         R = nows.shape[0]
         rep = state_replay(
@@ -400,7 +402,7 @@ class TorchPlacementCore:
             lpw=self.lpw, edge_col=self.edge_col,
             occw=P.get("OCCW"), occc=P.get("OCCC"), busy0=S.get("busy0"),
             last0=S.get("last0"), cnt0=S.get("cnt0"), t_idl=self.t_idl,
-            out=S.get("out"))
+            out=S.get("out"), skip=skip)
         st = {"rep": rep}
         cols_lat, cols_cost, cols_comp = [], [], []
         if self.n_cloud:
@@ -491,10 +493,11 @@ class TorchPlacementCore:
         copy brings the verdict to the host (one sync a walk): the walk's
         overflow flag, whether the codes reproduce themselves (with the
         replay's own overflow) and the largest live-slot count of the
-        replayed pools. A walk whose pool overflowed discards the replay and
-        returns ``None`` (the caller grows the pool and walks again); codes
-        that do not reproduce are a fault of the walk or the replay and
-        raise. Returns ``(st, code, feas, allowed, cnt_max)``."""
+        replayed pools. The replay takes the walk's overflow flags as
+        ``skip``: after a walk whose pool overflowed it does no work, and
+        this returns ``None`` (the caller grows the pool and walks again);
+        codes that do not reproduce are a fault of the walk or the replay
+        and raise. Returns ``(st, code, feas, allowed, cnt_max)``."""
         g, walk_ovf = state_walk(
             P["nows"], P["n"], ecomp=P.get("ECOMP"), elat=P.get("ELAT"),
             h0=S.get("h0"), nom_fixed=P.get("nom_fixed"), lpw=self.lpw,
@@ -503,7 +506,7 @@ class TorchPlacementCore:
             last0=S.get("last0"), cnt0=S.get("cnt0"), t_idl=self.t_idl,
             minlat=self.is_minlat, c_max=P["c_max"], alpha=P["alpha"],
             s0=S.get("s0"), deadline=P["deadline"])
-        st = self._state(g, P, S)
+        st = self._state(g, P, S, skip=walk_ovf if self.n_cloud else None)
         if self.is_minlat:
             # two rounded ops — the oracle's c_max + alpha * s_before
             allowed = torch.add(torch.mul(st["s_before"], P["alpha"]),

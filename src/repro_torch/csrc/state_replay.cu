@@ -32,8 +32,8 @@
 //     cp.async beside it). The other warps then step through the segment's
 //     dispatches only, one named barrier (the producer stays out of it) a
 //     dispatch;
-//   * in the step of dispatch k the `split` scanner warps (warp 0 and warps
-//     2, 3, ...) rank their parts of the pool at dispatch k's `now`: the
+//   * in the step of dispatch k the REPLAY_SPLIT scanner warps (warp 0 and
+//     warp 2) rank their parts of the pool at dispatch k's `now`: the
 //     first maximum of `last` over idle slots (busy <= now <= last + t_idl),
 //     as order-preserving keys, reduced across each warp with redux.sync.
 //     Past the barrier every warp merges the parts and applies the dispatch
@@ -104,8 +104,7 @@ __device__ __forceinline__ unsigned long long okey(double x) {
 constexpr int REPLAY_MAX_ROWS = 1024;                  // rows of a segment at most
 constexpr long long REPLAY_EDGE_BUDGET = 128 * 1024;   // the edge block's 3 segment buffers
 constexpr int REPLAY_GAP_WARPS = 4;                    // warps flagging the rows between dispatches
-constexpr int REPLAY_MAX_SPLIT = 4;                    // scanner warps of one pool: 1, 2 or 4
-constexpr int REPLAY_SPLIT = 2;                        // the default
+constexpr int REPLAY_SPLIT = 2;  // scanner warps of one pool (2 beat 1 and 4 on the card: PERF.md)
 constexpr int kNone = 0x7fffffff;                      // no slot
 
 // Shared-memory layouts, in bytes from the block's base; the host mirrors
@@ -114,7 +113,8 @@ struct PoolLayout {  // a config block
   long long wcc, now, key, g, list, nd, slot, total;
 };
 
-__host__ __device__ inline PoolLayout pool_layout(int cap, int seg, int split) {
+__host__ __device__ inline PoolLayout pool_layout(int cap, int seg) {
+  constexpr int split = REPLAY_SPLIT;
   PoolLayout L;
   long long o = 16LL * cap;                    // the pool: (busy, last) per slot
   L.wcc = o;   o += 2LL * seg * 16;            // [2][seg] (occw, occc) of the dispatches
@@ -155,13 +155,13 @@ __host__ __device__ inline int replay_ring_rows(int nd) {
   return seg;
 }
 
-// warps of a block: `split` scanners (warp 0 and warps 2 ..), the producer
-// (warp 1), the gap warps
-__host__ __device__ inline int replay_warps(int split) { return 1 + split + REPLAY_GAP_WARPS; }
+// warps of a block: the scanners (warp 0 and warp 2), the producer (warp 1),
+// the gap warps
+constexpr int REPLAY_WARPS = 1 + REPLAY_SPLIT + REPLAY_GAP_WARPS;
 
-__host__ __device__ inline long long replay_smem(int nd, int nc, int cap, int split) {
+__host__ __device__ inline long long replay_smem(int nd, int nc, int cap) {
   const int seg = replay_ring_rows(nd);
-  const long long pool = nc > 0 ? pool_layout(cap, seg, split).total : 0;
+  const long long pool = nc > 0 ? pool_layout(cap, seg).total : 0;
   const long long edge = nd > 0 ? edge_layout(nd, seg).total : 0;
   return pool > edge ? pool : edge;
 }
@@ -188,7 +188,8 @@ struct ReplayArgs {
   double* lastF;
   int* cntF;
   int* ovf;
-  int split, seg;
+  const int* skip;  // when any of its nskip flags is set the pass writes nothing
+  int nskip, seg;
 };
 
 __device__ __forceinline__ void group_sync(int threads) {
@@ -226,16 +227,16 @@ __device__ __forceinline__ void warp_best(unsigned long long key, int j, unsigne
 }
 
 // A scanner warp's part of the pool at `now`: the first maximum of `last`
-// over the idle slots among part * 32 + lane + 32 * S * i, as (key, slot).
+// over the idle slots among part * 32 + lane + 32 * REPLAY_SPLIT * i, as
+// (key, slot).
 // A slot is only ever written by the thread that scans it (the last
 // dispatch's included), so the loads need no patch; each lane walks its own
 // live slots only, the next slot's load in flight while one is ranked, by
 // `last` as a double (slots ascending: an equal value keeps the first).
-template <int S>
 __device__ __forceinline__ void scan_part(const double2* pool, int cnt, double now,
                                           double t_idl, int part, int lane,
                                           unsigned long long& K, int& J) {
-  constexpr int stride = kWarp * S;
+  constexpr int stride = kWarp * REPLAY_SPLIT;
   double best = -CUDART_INF;  // an idle slot's `last` is never -inf (now <= last + t_idl)
   int jb = kNone;
   int j = part * kWarp + lane;
@@ -261,11 +262,11 @@ __device__ __forceinline__ bool any_idle(const double2* pool, int cnt, int pj, d
   return false;
 }
 
-template <int S>
 __device__ void replay_pool_block(const int c, const ReplayArgs& a, unsigned char* sm) {
+  constexpr int S = REPLAY_SPLIT;
   const int tid = threadIdx.x, lane = tid % kWarp, w = tid / kWarp;
   const int SEG = a.seg, cap = a.cap, nc = a.nc, R = a.R;
-  const PoolLayout L = pool_layout(cap, SEG, S);
+  const PoolLayout L = pool_layout(cap, SEG);
   double2* pool = reinterpret_cast<double2*>(sm);
   double2* wcc = reinterpret_cast<double2*>(sm + L.wcc);
   double* snow = reinterpret_cast<double*>(sm + L.now);
@@ -276,7 +277,7 @@ __device__ void replay_pool_block(const int c, const ReplayArgs& a, unsigned cha
   int* rslot = reinterpret_cast<int*>(sm + L.slot);
   const int group = (int)blockDim.x - kWarp;  // threads of the step group: all but the producer
   const int G = (int)blockDim.x / kWarp - 1 - S;
-  // warp 0 and warps 2 .. S scan parts 0 .. S-1; warps S+1 .. flag the gaps
+  // warp 0 and warp 2 scan parts 0 and 1; warps 3 .. flag the gaps
   const int part = w == 0 ? 0 : w - 1;
   const bool scanner = w != 1 && part < S;
 
@@ -350,7 +351,7 @@ __device__ void replay_pool_block(const int c, const ReplayArgs& a, unsigned cha
         if (k < D) {
           unsigned long long K;
           int J;
-          scan_part<S>(pool, cnt, now, a.t_idl, part, lane, K, J);
+          scan_part(pool, cnt, now, a.t_idl, part, lane, K, J);
           if (lane == 0) {
             rkey[(k & 1) * S + part] = K;
             rslot[(k & 1) * S + part] = J;
@@ -584,33 +585,28 @@ __device__ void replay_edge_block(const ReplayArgs& a, unsigned char* sm) {
   }
 }
 
-template <int NDM, int S>
-__global__ void __launch_bounds__(kWarp * (1 + REPLAY_MAX_SPLIT + REPLAY_GAP_WARPS))
-    state_replay_kernel(ReplayArgs a) {
+template <int NDM>
+__global__ void __launch_bounds__(kWarp * REPLAY_WARPS) state_replay_kernel(ReplayArgs a) {
   extern __shared__ __align__(16) unsigned char rsm[];
+  // a pass the caller will discard (the walk that made `guess` overflowed a
+  // pool): every thread reads the same flags, so the whole block returns
+  if (a.nskip > 0) {
+    const int lane = threadIdx.x % kWarp;
+    int any = 0;
+    for (int i = lane; i < a.nskip; i += kWarp) any |= a.skip[i];
+    if (__any_sync(kFull, any != 0)) return;
+  }
   if ((int)blockIdx.x < a.nc)
-    replay_pool_block<S>(blockIdx.x, a, rsm);
+    replay_pool_block(blockIdx.x, a, rsm);
   else
     replay_edge_block<NDM>(a, rsm);
 }
 
-using ReplayKernel = decltype(&state_replay_kernel<4, 1>);
-
-template <int S>
-ReplayKernel replay_kernel_nd(int nd) {
-  return nd <= 4 ? state_replay_kernel<4, S>
-                 : (nd <= 32 ? state_replay_kernel<32, S> : state_replay_kernel<0, S>);
-}
+using ReplayKernel = decltype(&state_replay_kernel<4>);
 
 // the instantiation for the fleet (horizons in registers up to 32 devices)
-// and the scan split (1, 2 or 4 warps a pool)
-ReplayKernel replay_kernel(int nd, int split) {
-  return split == 1 ? replay_kernel_nd<1>(nd)
-                    : (split == 2 ? replay_kernel_nd<2>(nd) : replay_kernel_nd<4>(nd));
-}
-
-__host__ __device__ inline bool replay_split_ok(int split) {
-  return split == 1 || split == 2 || split == 4;
+ReplayKernel replay_kernel(int nd) {
+  return nd <= 4 ? state_replay_kernel<4> : (nd <= 32 ? state_replay_kernel<32> : state_replay_kernel<0>);
 }
 
 // the replay's chain floor: `steps` hand-offs of a float64 from one thread to
@@ -1163,9 +1159,7 @@ int state_walk_chain_floor(double* out, double inc, int R, int warps, void* stre
 
 // Shared memory of one replay block: the larger of a config block's
 // (pool_layout) and the edge block's (edge_layout).
-long long state_replay_smem_bytes(int nd, int nc, int cap, int split) {
-  return replay_smem(nd, nc, cap, split);
-}
+long long state_replay_smem_bytes(int nd, int nc, int cap) { return replay_smem(nd, nc, cap); }
 
 int state_replay_f64(const double* nows, const int* guess, int R, int nd, int lpw,
                      int edge_col, const double* ecomp, const double* h0,
@@ -1173,33 +1167,32 @@ int state_replay_f64(const double* nows, const int* guess, int R, int nd, int lp
                      int cap, double t_idl, const double* occw, const double* occc,
                      const double* busy0, const double* last0, const int* cnt0,
                      unsigned char* cold, double* busyF, double* lastF, int* cntF, int* ovf,
-                     int split, void* stream) {
+                     const int* skip, int nskip, void* stream) {
   const int blocks = nc + (nd > 0 ? 1 : 0);
   if (blocks == 0 || R == 0) return 0;
-  if (!replay_split_ok(split)) return (int)cudaErrorInvalidValue;
-  const ReplayArgs a{nows,  guess, R,    nd,    lpw,   edge_col, ecomp, h0,    nom_fixed,
-                     hb,    nom,   h_fin, nc,   cap,   t_idl,    occw,  occc,  busy0,
-                     last0, cnt0,  cold,  busyF, lastF, cntF,    ovf,   split, replay_ring_rows(nd)};
-  const long long bytes = replay_smem(nd, nc, cap, split);
-  const ReplayKernel kernel = replay_kernel(nd, split);
+  const ReplayArgs a{nows,  guess, R,     nd,    lpw,   edge_col, ecomp, h0,   nom_fixed,
+                     hb,    nom,   h_fin, nc,    cap,   t_idl,    occw,  occc, busy0,
+                     last0, cnt0,  cold,  busyF, lastF, cntF,     ovf,   skip, skip ? nskip : 0,
+                     replay_ring_rows(nd)};
+  const long long bytes = replay_smem(nd, nc, cap);
+  const ReplayKernel kernel = replay_kernel(nd);
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<blocks, kWarp * replay_warps(split), (size_t)bytes, (cudaStream_t)stream>>>(a);
+  kernel<<<blocks, kWarp * REPLAY_WARPS, (size_t)bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The replay's launch as state_replay_f64 makes it, for the host's mirror of
 // it to be held against: out[0] warps of a block, out[1] rows of a segment,
 // out[2] scanner warps of a pool, out[3] bytes of shared memory.
-int state_replay_layout(int nd, int nc, int cap, int split, long long* out) {
-  if (!replay_split_ok(split)) return (int)cudaErrorInvalidValue;
-  out[0] = replay_warps(split);
+int state_replay_layout(int nd, int nc, int cap, long long* out) {
+  out[0] = REPLAY_WARPS;
   out[1] = replay_ring_rows(nd);
-  out[2] = split;
-  out[3] = replay_smem(nd, nc, cap, split);
+  out[2] = REPLAY_SPLIT;
+  out[3] = replay_smem(nd, nc, cap);
   return 0;
 }
 

@@ -56,8 +56,7 @@ class ReplayOut(NamedTuple):
 REPLAY_MAX_ROWS = 1024           # rows of a replay segment at most
 REPLAY_EDGE_BUDGET = 128 * 1024  # bytes of the edge block's three segment buffers
 REPLAY_GAP_WARPS = 4             # warps flagging the rows between dispatches
-REPLAY_SPLITS = (1, 2, 4)        # scanner warps of one pool it takes
-REPLAY_SPLIT = 2                 # ... by default (fastest on the card: PERF.md)
+REPLAY_SPLIT = 2                 # scanner warps of one pool (2 beat 1 and 4: PERF.md)
 
 
 def _edge_block_bytes(nd: int, seg: int) -> int:
@@ -68,11 +67,12 @@ def _edge_block_bytes(nd: int, seg: int) -> int:
     return 3 * seg * 8 * (1 + nd) + 3 * (seg + 1) * nd * 8 + 3 * seg * 16 + 12
 
 
-def _pool_block_bytes(cap: int, seg: int, split: int) -> int:
+def _pool_block_bytes(cap: int, seg: int) -> int:
     """Mirrors ``pool_layout``: the (busy, last) pool, two segment buffers
     of (occw, occc) pairs, nows, codes and dispatch rows, two segment counts
     and the scan parts' best keys and slots for two dispatches."""
-    return 16 * cap + 2 * seg * (16 + 8 + 4 + 4) + 2 * 4 + 2 * split * (8 + 4)
+    return 16 * cap + 2 * seg * (16 + 8 + 4 + 4) + 2 * 4 \
+        + 2 * REPLAY_SPLIT * (8 + 4)
 
 
 def replay_ring_rows(nd: int) -> int:
@@ -85,31 +85,30 @@ def replay_ring_rows(nd: int) -> int:
     return seg
 
 
-def replay_warps(split: int = REPLAY_SPLIT) -> int:
-    """Warps of a replay block (mirrors ``replay_warps``): ``split``
-    scanners, the producer and the gap warps."""
-    return 1 + split + REPLAY_GAP_WARPS
+def replay_warps() -> int:
+    """Warps of a replay block (mirrors ``REPLAY_WARPS``): the
+    ``REPLAY_SPLIT`` scanners, the producer and the gap warps."""
+    return 1 + REPLAY_SPLIT + REPLAY_GAP_WARPS
 
 
-def smem_bytes(nd: int, nc: int, cap: int, split: int = REPLAY_SPLIT) -> int:
+def smem_bytes(nd: int, nc: int, cap: int) -> int:
     """Shared memory per replay block (mirrors ``state_replay_smem_bytes``):
     the larger of a config block's and the edge block's."""
     seg = replay_ring_rows(nd)
-    pool = _pool_block_bytes(cap, seg, split) if nc else 0
+    pool = _pool_block_bytes(cap, seg) if nc else 0
     edge = _edge_block_bytes(nd, seg) if nd else 0
     return max(pool, edge)
 
 
-def replay_launch_layout(nd: int, nc: int, cap: int,
-                         split: int = REPLAY_SPLIT) -> tuple[int, int, int, int]:
+def replay_launch_layout(nd: int, nc: int, cap: int) -> tuple[int, int, int, int]:
     """``(warps, ring_rows, split, smem_bytes)`` of the replay's launch as
     the built library makes it (``state_replay_layout``, from the same C
     helpers as ``state_replay_f64``); ``chip_smoke.py`` and the card tests
     hold the mirrors above to it."""
     out = (ctypes.c_longlong * 4)()
     fn = _build.function("state_replay", "state_replay_layout",
-                         [_build.I32] * 4 + [_build.P])
-    _build.check(fn(nd, nc, cap, split, out), "state_replay_layout")
+                         [_build.I32] * 3 + [_build.P])
+    _build.check(fn(nd, nc, cap, out), "state_replay_layout")
     return tuple(int(x) for x in out)
 
 
@@ -198,20 +197,35 @@ def state_replay_plain(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
 def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
                  lpw=False, edge_col=-1, occw=None, occc=None, busy0=None,
                  last0=None, cnt0=None, t_idl: float = 0.0,
-                 out=None, split: int = REPLAY_SPLIT) -> ReplayOut:
+                 out=None, skip=None) -> ReplayOut:
     """One replay pass; see the module docstring. ``ecomp``/``h0`` (and
     ``nom_fixed`` unless ``lpw``) describe the edge fleet, ``occw``/``occc``/
     ``busy0``/``last0``/``cnt0`` the container pools; leave either group
     ``None`` when the engine has no edge fleet / no cloud config. ``out``
     may carry ``(busy, last, cnt)`` buffers for the final pools, reused
-    across passes and chunks; ``split`` is the number of warps that scan
-    each pool (one of ``REPLAY_SPLITS``).
+    across passes and chunks. ``skip``, an int32 tensor of flags (the
+    walk's per-config overflow), makes a pass whose result the caller will
+    discard cost nothing: when any flag is set nothing is computed or
+    written (the outputs hold no values, ``overflow`` reads 0), and on the
+    card the kernel returns at once without a host read.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``state_replay_f64`` (one block per config pool plus one for the edge
     horizons) or raise."""
     R, nd, nc, cap = _shapes(nows, ecomp, busy0)
     if nows.device.type == "cpu":
+        if skip is not None and bool(skip.any()):
+            f64 = torch.float64
+            busy, last, cnt = out if out is not None and nc else (
+                torch.zeros((nc, cap), dtype=f64),
+                torch.zeros((nc, cap), dtype=f64),
+                torch.zeros(nc, dtype=torch.int32))
+            return ReplayOut(torch.zeros((R, nd), dtype=f64),
+                             torch.zeros(R, dtype=torch.int32),
+                             torch.zeros(nd, dtype=f64),
+                             torch.zeros((R, nc), dtype=torch.bool),
+                             busy, last, cnt,
+                             torch.zeros(nc, dtype=torch.int32))
         res = state_replay_plain(
             nows, guess, ecomp=ecomp, h0=h0, nom_fixed=nom_fixed, lpw=lpw,
             edge_col=edge_col, occw=occw, occc=occc, busy0=busy0,
@@ -222,10 +236,7 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
             res = res._replace(busy=out[0], last=out[1], cnt=out[2])
         return res
     device = nows.device
-    if split not in REPLAY_SPLITS:
-        raise ValueError(f"state_replay: split must be one of "
-                         f"{REPLAY_SPLITS}, got {split}")
-    need = smem_bytes(nd, nc, cap, split)
+    need = smem_bytes(nd, nc, cap)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"state_replay: a pool of {cap} container slots needs {need} B of "
@@ -254,6 +265,8 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
         req(busy0, "busy0", f64, (nc, cap))
         req(last0, "last0", f64, (nc, cap))
         req(cnt0, "cnt0", i32, (nc,))
+    if skip is not None:
+        req(skip, "skip", i32, (skip.numel(),))
     hb = torch.empty((R, nd), dtype=f64, device=device)
     nom = torch.zeros(R, dtype=i32, device=device)
     h_fin = torch.empty(nd, dtype=f64, device=device)
@@ -272,7 +285,7 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
     fn = _build.function(
         "state_replay", "state_replay_f64",
         [P, P, I32, I32, I32, I32, P, P, P, P, P, P, I32, I32, F64]
-        + [P] * 10 + [I32, P])
+        + [P] * 11 + [I32, P])
     ptr = _build.ptr
     rc = fn(ptr(nows), ptr(guess), R, nd, int(bool(lpw)), int(edge_col),
             ptr(ecomp if nd else None), ptr(h0 if nd else None),
@@ -281,7 +294,8 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
             ptr(occw if nc else None), ptr(occc if nc else None),
             ptr(busy0 if nc else None), ptr(last0 if nc else None),
             ptr(cnt0 if nc else None), ptr(cold), ptr(busy), ptr(last),
-            ptr(cnt), ptr(overflow), int(split), _build.stream_of(nows))
+            ptr(cnt), ptr(overflow), ptr(skip),
+            0 if skip is None else skip.numel(), _build.stream_of(nows))
     _build.check(rc, "state_replay")
     _build.counted(state_replay)
     return ReplayOut(hb, nom, h_fin, cold, busy, last, cnt, overflow)

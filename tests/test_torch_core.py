@@ -262,9 +262,26 @@ def test_pool_grow_and_retry(setup, monkeypatch):
 def test_regrowing_stream_keeps_parity_with_one_verdict_copy_per_walk(
         setup, monkeypatch):
     """A stream whose pools overflow (one-slot seeds, chunks of 64) stays
-    bit-identical to the numpy oracle, and every walk, the ones discarded
-    for an overflow included, brings its verdict to the host in one copy."""
+    bit-identical to the numpy oracle; every walk, the ones discarded for
+    an overflow included, brings its verdict to the host in one copy; and
+    a walk that overflowed hands its flags to the replay, which then does
+    no work: each chunk replays once."""
+    from repro_torch.kernels.state_replay import kernel as replay_kernel
+
     monkeypatch.setattr(torch_core, "POOL_MIN_CAP", 1)
+    skips, runs = [], []
+    replay, plain = torch_core.state_replay, replay_kernel.state_replay_plain
+
+    def watched(*args, **kwargs):
+        skips.append(bool(kwargs["skip"].any()))
+        return replay(*args, **kwargs)
+
+    def ran(*args, **kwargs):
+        runs.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(torch_core, "state_replay", watched)
+    monkeypatch.setattr(replay_kernel, "state_replay_plain", ran)
     ref_rt, rt = _runtimes(setup)
     ref_tasks, tasks = _bursty(setup, 600, seed=5)
     ref = ref_rt.serve_stream(ref_tasks, chunk_size=64)
@@ -274,6 +291,8 @@ def test_regrowing_stream_keeps_parity_with_one_verdict_copy_per_walk(
     assert core.pool_regrows >= 1
     chunks = -(-len(tasks) // 64)
     assert core.verify_syncs == chunks + core.pool_regrows
+    assert len(skips) == chunks + core.pool_regrows
+    assert sum(skips) == core.pool_regrows and len(runs) == chunks
 
 
 # tensor methods that bring a value to the host (a sync on a card)

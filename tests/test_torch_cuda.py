@@ -15,12 +15,16 @@ own kernel tolerances); the SSD scan's y within 1e-4 in float32 and within
 CPU-side parity with the JAX package is in ``tests/test_torch_modeling.py``
 and ``tests/test_torch_ssm.py``; here a small dense LM, a small Mamba-2 LM
 and live executors run on the card, the decode step from its CUDA graph.
-The replay-input helpers are shared with ``tests/test_torch_kernels.py``.
+The replay-input helpers are shared with ``tests/test_torch_kernels.py``;
+K6's bf16 limits on y by its scale (``SSD_ROW_TOL``, ``SSD_MEAN_TOL``) and
+its planted faults are ``chip_smoke.py``'s, loaded from the checkout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -524,6 +528,26 @@ def max_abs(a, b) -> float:
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
+def _load_chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load_chip_smoke()
+
+
+def assert_ssd_bf16_scale(got, want, case):
+    """K6's bf16 y against the plain version's by its scale: each (batch,
+    head) row within SSD_ROW_TOL of its largest |y|, the mean error within
+    SSD_MEAN_TOL of the mean |y| (``chip_smoke.py``'s limits)."""
+    row, mean = SMOKE.ssd_y_errs(got, want)
+    assert row <= SMOKE.SSD_ROW_TOL and mean <= SMOKE.SSD_MEAN_TOL, (
+        case, row, mean)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_on_card(cuda_device, rng, dtype):
@@ -531,7 +555,8 @@ def test_ssd_scan_on_card(cuda_device, rng, dtype):
     ds 16, chunks of 8), mamba2-780m's head shape at the serving prompt (one
     chunk of 32), padded multi-chunk and non-power-of-two chunks, ragged
     head-dim slices; y within 1e-4 in float32 and within 3e-2 of
-    max(1, |y|) in bf16, the float32 state within 1e-4. The model layout
+    max(1, |y|) in bf16 (and within the bf16 limits by y's scale), the
+    float32 state within 1e-4. The model layout
     through strided views is bit-equal to the kernel layout."""
     from repro_torch.kernels.ssd_scan.kernel import (
         ssd_scan_bhsd,
@@ -555,6 +580,8 @@ def test_ssd_scan_on_card(cuda_device, rng, dtype):
         y_err = ssd_err(y, want_y) if dtype == torch.bfloat16 \
             else max_abs(y, want_y)
         assert y_err <= SSD_TOL[dtype], (case, y_err)
+        if dtype == torch.bfloat16:
+            assert_ssd_bf16_scale(y, want_y, case)
         assert max_abs(s, want_s) <= 1e-4, (case, max_abs(s, want_s))
         x, dt, A, B, C = dev_args
         ys, ss = ssd(x.transpose(1, 2).contiguous(),
@@ -952,15 +979,14 @@ def _replay_case(rng, case):
     return to_torch(nows, guess, kw)
 
 
-def _replay_on_card(tn, tg, tkw, device, split=None):
+def _replay_on_card(tn, tg, tkw, device):
     from repro_torch.kernels.state_replay.kernel import state_replay_plain
 
     want = state_replay_plain(tn, tg, **tkw)
-    extra = {} if split is None else {"split": split}
     before = state_replay.launches
     got = state_replay(tn.to(device), tg.to(device),
                        **{k: v.to(device) if torch.is_tensor(v) else v
-                          for k, v in tkw.items()}, **extra)
+                          for k, v in tkw.items()})
     torch.cuda.synchronize()
     assert state_replay.launches == before + 1
     for field, a_, b_ in zip(got._fields, got, want):
@@ -987,12 +1013,35 @@ def test_replay_cases_on_card(cuda_device, rng, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("split", [1, 2, 4])
-def test_replay_scan_splits_on_card(cuda_device, rng, split):
-    """Every scan split gives the same bits (1, 2 or 4 warps a pool), on a
-    long chain over a large pool."""
+@pytest.mark.parametrize("flags", [(0, 0, 0, 0), (0, 0, 1, 0), (1, 1, 1, 1)])
+def test_replay_skip_flags_on_card(cuda_device, rng, flags):
+    """The walk's overflow flags as ``skip``: all clear, the pass is the
+    plain version's bit for bit; any set, the kernel launches (one count)
+    and writes nothing, so the final pools keep what they held."""
+    from repro_torch.kernels.state_replay.kernel import state_replay_plain
+
     tn, tg, tkw = _replay_case(rng, "dominant")
-    _replay_on_card(tn, tg, tkw, cuda_device, split=split)
+    dev = {k: v.to(cuda_device) if torch.is_tensor(v) else v
+           for k, v in tkw.items()}
+    nc, cap = tkw["busy0"].shape
+    out = (torch.full((nc, cap), 7.0, dtype=torch.float64,
+                      device=cuda_device),
+           torch.full((nc, cap), 7.0, dtype=torch.float64,
+                      device=cuda_device),
+           torch.full((nc,), 7, dtype=torch.int32, device=cuda_device))
+    skip = torch.tensor(flags, dtype=torch.int32, device=cuda_device)
+    before = state_replay.launches
+    got = state_replay(tn.to(cuda_device), tg.to(cuda_device), **dev,
+                       out=out, skip=skip)
+    torch.cuda.synchronize()
+    assert state_replay.launches == before + 1
+    if any(flags):
+        assert (out[0] == 7.0).all() and (out[1] == 7.0).all()
+        assert (out[2] == 7).all() and not got.overflow.any()
+    else:
+        want = state_replay_plain(tn, tg, **tkw)
+        for field, a_, b_ in zip(got._fields, got, want):
+            assert torch.equal(a_.cpu(), b_), field
 
 
 @pytest.mark.cuda
@@ -1026,11 +1075,11 @@ def test_replay_chain_floor_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nd", [0, 1, 3, 40])
 def test_replay_layout_mirrors_the_library_on_card(cuda_device, nd):
-    """The host's mirror of the replay's launch (warps, segment rows, scan
-    split, shared memory) equals what the built library computes, at every
-    config count up to 32 and every split."""
+    """The host's mirror of the replay's launch (warps, segment rows,
+    scanners per pool, shared memory) equals what the built library
+    computes, at every config count up to 32."""
     from repro_torch.kernels.state_replay.kernel import (
-        REPLAY_SPLITS,
+        REPLAY_SPLIT,
         replay_launch_layout,
         replay_ring_rows,
         replay_warps,
@@ -1039,11 +1088,9 @@ def test_replay_layout_mirrors_the_library_on_card(cuda_device, nd):
 
     for nc in range(33):
         for cap in (8, 512, 2048):
-            for split in REPLAY_SPLITS:
-                mirror = (replay_warps(split), replay_ring_rows(nd), split,
-                          smem_bytes(nd, nc, cap, split))
-                assert replay_launch_layout(nd, nc, cap, split) == mirror, (
-                    nd, nc, cap, split)
+            mirror = (replay_warps(), replay_ring_rows(nd), REPLAY_SPLIT,
+                      smem_bytes(nd, nc, cap))
+            assert replay_launch_layout(nd, nc, cap) == mirror, (nd, nc, cap)
 
 
 # ------------------------------------------------------------------ K6
@@ -1053,8 +1100,8 @@ def test_replay_layout_mirrors_the_library_on_card(cuda_device, nd):
 def test_ssd_scan_row_counts_on_card(cuda_device, rng, dtype, S):
     """K6 at mamba2-780m's head shape (hd 64, ds 128, chunk 128) with S
     around the chunk (1, Q - 1, Q, Q + 1), at 300 and 4096 rows: y and
-    state against the plain version at SSD_TOL, one launch count per
-    call on either route."""
+    state against the plain version at SSD_TOL (bf16 y also by its scale),
+    one launch count per call on either route."""
     from repro_torch.kernels.ssd_scan.kernel import (
         ssd_scan_bhsd,
         ssd_scan_plain,
@@ -1070,7 +1117,32 @@ def test_ssd_scan_row_counts_on_card(cuda_device, rng, dtype, S):
     y_err = ssd_err(y, want_y) if dtype == torch.bfloat16 \
         else max_abs(y, want_y)
     assert y_err <= SSD_TOL[dtype], (S, y_err)
+    if dtype == torch.bfloat16:
+        assert_ssd_bf16_scale(y, want_y, S)
     assert max_abs(s, want_s) <= 1e-4, (S, max_abs(s, want_s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["hi_only", "drop_tile", "zero_group"])
+@pytest.mark.parametrize("S", [32, 300])
+def test_ssd_scan_bf16_limits_see_planted_faults_on_card(cuda_device, rng,
+                                                         fault, S):
+    """The bf16 limits by y's scale fail a kernel that takes scores x from
+    the hi bf16 term alone, drops a diagonal score tile or zeroes a head
+    group: the fault's y, computed plainly on the card, lies beyond one of
+    them from the kernel's, which lies within both of the plain version's
+    (mamba2-780m's head shape, 48 heads, one chunk and three)."""
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_plain,
+    )
+
+    args = [t.to(cuda_device) for t in ssd_inputs(rng, 1, 48, S, 64, 128,
+                                                   torch.bfloat16)]
+    y, _ = ssd_scan_bhsd(*args, chunk=128)
+    assert_ssd_bf16_scale(y, ssd_scan_plain(*args, chunk=128)[0], S)
+    row, mean = SMOKE.ssd_y_errs(SMOKE.ssd_planted(*args, 128, fault), y)
+    assert row > SMOKE.SSD_ROW_TOL or mean > SMOKE.SSD_MEAN_TOL, (row, mean)
 
 
 # ------------------------------------------------------------------ K4

@@ -34,7 +34,6 @@ from repro_torch.kernels.state_replay.kernel import (
     REPLAY_GAP_WARPS,
     REPLAY_MAX_ROWS,
     REPLAY_SPLIT,
-    REPLAY_SPLITS,
     SMEM_LIMIT,
     replay_ring_rows,
     replay_warps,
@@ -171,28 +170,28 @@ def test_replay_ring_rows_fit_the_edge_budget(nd):
 
 
 @pytest.mark.parametrize("nc", range(0, 33))
-@pytest.mark.parametrize("split", REPLAY_SPLITS)
-def test_replay_layout_mirror_over_every_config_count(nc, split):
-    """The replay's shared memory at every config count and scan split: a
-    config block's (busy, last) pool, two segment buffers ((occw, occc),
-    now, code and dispatch row a row), two dispatches' scan parts and
-    the segment counts; the edge block's three buffers; the larger of the
-    two. Config blocks are independent of nc; the pools the placement core
-    may grow to (``max_pool_cap``) always fit one block."""
-    nd = 3
+@pytest.mark.parametrize("nd", [1, 3, 40])
+def test_replay_layout_mirror_over_every_config_count(nc, nd):
+    """The replay's shared memory at every config count, for fleets of
+    one, three and forty devices: a config block's (busy, last) pool, two
+    segment buffers ((occw, occc), now, code and dispatch row a row), two
+    dispatches' scan parts (``REPLAY_SPLIT`` a pool) and the segment counts;
+    the edge block's three buffers; the larger of the two. Config blocks
+    are independent of nc; the pools the placement core may grow to
+    (``max_pool_cap``) always fit one block."""
     seg = replay_ring_rows(nd)
     cap = max_pool_cap(nd, nc) if nc else 0
-    pool = 16 * cap + 2 * seg * 32 + 8 + 2 * split * 12
+    pool = 16 * cap + 2 * seg * 32 + 8 + 2 * REPLAY_SPLIT * 12
     edge = 3 * seg * 8 * (1 + 2 * nd) + 3 * 8 * nd + 3 * seg * 16 + 12
     want = max(pool if nc else 0, edge)
-    assert smem_bytes(nd, nc, cap, split) == want
-    assert smem_bytes(nd, nc, cap, split) <= SMEM_LIMIT
+    assert smem_bytes(nd, nc, cap) == want
+    assert smem_bytes(nd, nc, cap) <= SMEM_LIMIT
     # without an edge fleet: the config blocks alone, on 1024-row segments
     seg0 = replay_ring_rows(0)
     assert seg0 == REPLAY_MAX_ROWS
-    assert smem_bytes(0, nc, cap, split) == (
-        16 * cap + 2 * seg0 * 32 + 8 + 2 * split * 12 if nc else 0)
-    assert replay_warps(split) == 1 + split + REPLAY_GAP_WARPS
+    assert smem_bytes(0, nc, cap) == (
+        16 * cap + 2 * seg0 * 32 + 8 + 2 * REPLAY_SPLIT * 12 if nc else 0)
+    assert replay_warps() == 1 + REPLAY_SPLIT + REPLAY_GAP_WARPS
 
 
 def test_replay_default_launch():

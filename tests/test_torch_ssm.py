@@ -26,6 +26,9 @@ tolerance in ``tests/test_torch_modeling.py``.
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -403,6 +406,49 @@ def test_mamba_serving_cast_keeps_float32_params():
                        params["layers/mixer/in_proj"])
     assert torch.equal(masters["layers/mixer/a_log"],
                        params["layers/mixer/a_log"])
+
+
+def _load_chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", ["hi_only", "drop_tile", "zero_group"])
+@pytest.mark.parametrize("S,chunk", [(32, 32), (100, 32)])
+def test_ssd_bf16_limits_see_planted_faults(fault, S, chunk, rng, capsys):
+    """``chip_smoke.py``'s bf16 limits on K6's y by its scale (each row
+    within SSD_ROW_TOL of its largest |y|, the mean error within
+    SSD_MEAN_TOL of the mean |y|), on the CPU with the Pallas kernel in
+    interpret mode as the kernel: the port's plain version lies within both
+    of it, and a planted fault (scores x from the hi bf16 term alone, a
+    dropped diagonal score tile, a zeroed head group) beyond one."""
+    smoke = _load_chip_smoke()
+    b, nh, hd, ds = 1, 8, 32, 64
+    x = rng.normal(size=(b, S, nh, hd))
+    dt = np.abs(rng.normal(size=(b, S, nh))) * 0.5
+    A = -np.abs(rng.normal(size=(nh,))) - 0.1
+    B, C = (rng.normal(size=(b, S, ds)) * ds ** -0.5 for _ in "BC")
+    jargs, targs = zip(*(_pair(v, t) for v, t in (
+        (x, "bfloat16"), (dt, "float32"), (A, "float32"), (B, "bfloat16"),
+        (C, "bfloat16"))))
+    jy, _ = jax_ssd_pallas(*jargs, chunk=chunk, interpret=True)
+    kernel_y = torch.from_numpy(np.array(_np(jy))).to(torch.bfloat16) \
+        .transpose(1, 2)
+    y, _ = ssd(*targs, chunk=chunk)
+    row, mean = smoke.ssd_y_errs(y.transpose(1, 2), kernel_y)
+    assert row <= smoke.SSD_ROW_TOL and mean <= smoke.SSD_MEAN_TOL, (row,
+                                                                      mean)
+    kx, kdt, kA, kB, kC = targs
+    bad = smoke.ssd_planted(kx.transpose(1, 2), kdt.transpose(1, 2), kA, kB,
+                            kC, chunk, fault)
+    f_row, f_mean = smoke.ssd_y_errs(bad, kernel_y)
+    with capsys.disabled():
+        print(f"\nK6 bf16 S={S} sound: row {row:.3g} mean {mean:.3g}; "
+              f"{fault}: row {f_row:.3g} mean {f_mean:.3g}")
+    assert f_row > smoke.SSD_ROW_TOL or f_mean > smoke.SSD_MEAN_TOL
 
 
 FULL_WIDTH_GAP_TOL = {32: 1e-4, 300: 5e-4}
