@@ -14,8 +14,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``decode_attention`` libraries' SASS (``cuobjdump -sass``), failing if
    either bf16 kernel has none;
 2. hold each kernel against its plain PyTorch version at the shapes its main
-   path gives it: the GBRT kernels (K1 multi-config, K2 blocked) bit-equal in
-   float64 and within 1e-4 in float32; the linear scan (K3) bit-equal in its
+   path gives it: the GBRT kernels (K1 multi-config, K2 blocked; each a step
+   table built on the card per call, then a lookup) bit-equal in float64 and
+   in float32, on the first chunk's sizes and on an adversarial column of
+   the same width (every break of the model, each break's two float
+   neighbours, NaN, +-inf and +-0.0), each timed from a CUDA graph
+   (``ms``, device time) and eagerly (``eager_ms``), with its bound for the
+   table method's work (``bound_ms``) beside the old walk's
+   (``walk_bound_ms``), K2's route per call, and for K1 the torch core's
+   host-table route (``torch.searchsorted`` + ``torch.gather`` over the
+   host's step tables, without their build) timed on the card
+   (``table_route_ms``); the linear scan (K3) bit-equal in its
    exact-fold regime as the float64 surplus prefix of a 65,536-row chunk
    (65,537 rows with the seed), and within 5e-5 in its chunked regime in
    float32 at an RG-LRU shape (B=2, S=4096, D=1024); its row also records
@@ -80,8 +89,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``MinCostPolicy(deadline_ms=250)``, each held against the port's numpy
    oracle run with ``device="cpu"`` (target codes and cold/feasible flags
    identical, floats within 1e-9), and the MinCost stream once more with
-   ``array_backend="numpy"`` on the card (its host prediction pass runs K2),
-   which must be identical to the oracle. Every kernel's launch count is
+   ``array_backend="numpy"`` on the card (its host prediction pass runs K2,
+   once per config and chunk, on its table route), which must be identical
+   to the oracle; K1 runs once per chunk. Every kernel's launch count is
    zeroed just before the run that drives it and read just after; each must
    be > 0, the fallback-chunk count 0, and the residency counters clean;
 4. build llama3.2-1b (16 layers, d_model 2048, 1.5 B parameters), then
@@ -384,6 +394,30 @@ def graph_ms(fn, reps: int) -> float:
     return ms
 
 
+def kernel_device_us(fn, reps: int = 50) -> dict[str, float]:
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches, by kernel name, from ``torch.profiler`` over ``reps``
+    calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0)
+        if us > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            out[name.split("(")[0].split("<")[0]] = us / reps
+    if not out:
+        fail("torch.profiler recorded no device time")
+    return out
+
+
 def max_ulps(a, b) -> int:
     """Largest distance in units in the last place between two float64
     tensors (signed values mapped onto one ordered integer line)."""
@@ -479,6 +513,52 @@ def max_err(a, b) -> float:
         if a.numel() else 0.0
 
 
+def bits_equal(a, b) -> bool:
+    """Bit-identical float tensors, on any devices (so -0.0 differs from
+    +0.0 and NaN equals a NaN of the same bits)."""
+    import torch
+
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def search_steps(n: int) -> int:
+    """Compares of a binary search over n sorted values, the last one
+    aside: ceil(log2 n)."""
+    return max(n - 1, 0).bit_length()
+
+
+def adversarial(breaks, fill, npd, rng):
+    """A numpy column of ``len(fill)`` values of dtype ``npd``: every
+    finite break of the +inf-padded ``breaks`` rows, each break's two float
+    neighbours, NaN, +-inf and +-0.0 (as many as fit), then ``fill``, in an
+    order drawn from the numpy generator ``rng``."""
+    import numpy as np
+
+    b = np.asarray(breaks, npd).ravel()
+    b = np.unique(b[b != np.inf])
+    special = np.concatenate([
+        b, np.nextafter(b, npd(-np.inf)), np.nextafter(b, npd(np.inf)),
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], npd)])
+    n = len(fill)
+    return rng.permutation(np.concatenate(
+        [special, np.asarray(fill, npd)])[:n])
+
+
+def host_step_tables(model, dev):
+    """The torch core's host tables ``BR``, ``VL`` for ``model`` at every
+    config's memory, built by the core's own code."""
+    import torch
+
+    from repro_torch.core.predictor import const1_serving_table
+    from repro_torch.core.torch_core import padded_step_tables
+
+    return tuple(torch.as_tensor(a, device=dev) for a in padded_step_tables(
+        [const1_serving_table(model, float(m)) for m in CONFIGS]))
+
+
 def row(name, source, replaces, ms, plain_ms, err, nbytes, ops, dtype,
         library_ms=None, bound_at=None, **extra) -> dict:
     """One kernel's line; ``dtype`` names the peak rate of its bound, unless
@@ -503,6 +583,7 @@ def phase_kernels(ctx, dev) -> list[dict]:
         gbrt_predict_blocked_plain,
         gbrt_predict_multi,
         gbrt_predict_multi_plain,
+        step_table,
     )
     from repro_torch.kernels.gbrt_predict.ops import (
         kernel_operands,
@@ -539,62 +620,110 @@ def phase_kernels(ctx, dev) -> list[dict]:
     # ---- K1: every config's ensemble over the chunk's size column --------
     sizes = torch.as_tensor(np.asarray(chunk.size, np.float64), device=dev)
     mem = torch.tensor([float(m) for m in CONFIGS], dtype=f64, device=dev)
+    models = [model] * len(CONFIGS)
+    k1_ops = {dt: multi_kernel_operands(models, dt, dev) for dt in (f64, f32)}
     errs = {}
-    for dt, tol in ((f64, 0.0), (f32, 1e-4)):
-        F, TH, LV, LR, BASE, depth = multi_kernel_operands(
-            [model] * len(CONFIGS), dt, dev)
-        args = (sizes.to(dt), mem.to(dt), LR, BASE, F, TH, LV)
-        got = gbrt_predict_multi(*args, depth=depth)
-        want = gbrt_predict_multi_plain(*args, depth=depth)
-        errs[dt] = max_err(got, want)
-        if dt == f64 and not torch.equal(got, want):
-            fail(f"K1 float64 differs from its plain version ({errs[dt]})")
-        if not torch.allclose(got.double(), want.double(), rtol=tol,
-                              atol=tol):
-            fail(f"K1 float32 differs by {errs[dt]}")
-    F, TH, LV, LR, BASE, depth = multi_kernel_operands(
-        [model] * len(CONFIGS), f64, dev)
+    for dt in (f64, f32):
+        F, TH, LV, LR, BASE, depth = k1_ops[dt]
+        npd = np.float64 if dt == f64 else np.float32
+        adv = torch.as_tensor(adversarial(
+            step_table(TH).breaks.cpu().numpy(), chunk.size, npd,
+            np.random.default_rng(0)), device=dev)
+        for case, col in (("chunk", sizes.to(dt)), ("adversarial", adv)):
+            args = (col, mem.to(dt), LR, BASE, F, TH, LV)
+            got = gbrt_predict_multi(*args, depth=depth)
+            want = gbrt_predict_multi_plain(*args, depth=depth)
+            errs[dt, case] = max_err(got, want)
+            if not bits_equal(got, want):
+                fail(f"K1 {dt} on the {case} column differs from its plain "
+                     f"version ({errs[dt, case]})")
+    F, TH, LV, LR, BASE, depth = k1_ops[f64]
+    counts = step_table(TH).counts
     args = (sizes, mem, LR, BASE, F, TH, LV)
     C, T, I = F.shape
     L = LV.shape[2]
+    host_br, host_vl = host_step_tables(model, dev)
+
+    def k1():
+        return gbrt_predict_multi(*args, depth=depth)
+
+    def table_route():
+        idx = torch.searchsorted(host_br, sizes.expand(C, N).contiguous(),
+                                 side="left")
+        return torch.gather(host_vl, 1, idx).T
+
+    k1_bytes = N * 8 + 3 * C * 8 + C * T * (I * 12 + L * 8) + N * C * 8
+    walk_ms, walk_by = bound(k1_bytes, N * C * T * (depth + 2), "float64")
     rows.append(row(
         "gbrt_predict_multi", "src/repro_torch/csrc/gbrt_predict.cu",
         "src/repro/kernels/gbrt_predict/kernel.py:126",
-        cuda_ms(lambda: gbrt_predict_multi(*args, depth=depth), 20),
+        graph_ms(k1, 20),
         cuda_ms(lambda: gbrt_predict_multi_plain(*args, depth=depth), 2),
-        errs[f64], N * 8 + 3 * C * 8 + C * T * (I * 12 + L * 8) + N * C * 8,
-        N * C * T * (depth + 2), "float64",
-        shape=f"N={N} C={C} T={T} I={I} L={L} f64",
-        max_abs_err_f32=errs[f32]))
+        errs[f64, "chunk"], k1_bytes,
+        sum((n + 1) * T * (depth + 2) + N * (search_steps(n + 1) + 1)
+            for n in counts), "float64",
+        eager_ms=cuda_ms(k1, 20), device_us=kernel_device_us(k1),
+        walk_bound_ms=walk_ms, walk_bound_by=walk_by,
+        table_route_ms=graph_ms(table_route, 20),
+        table_route_bit_equal=bits_equal(table_route(), k1()),
+        breaks=list(counts), max_abs_err_f32=errs[f32, "chunk"],
+        adversarial_max_abs_err=max(errs[dt, "adversarial"]
+                                    for dt in (f64, f32)),
+        shape=f"N={N} C={C} T={T} I={I} L={L} f64"))
 
     # ---- K2: one ensemble over (N, 2) rows (the host prediction pass) ----
     x2 = torch.stack([sizes, torch.full_like(sizes, 1792.0)], 1).contiguous()
-    for dt, tol in ((f64, 0.0), (f32, 1e-4)):
-        feats, thr, lvs = kernel_operands(model, dt, dev)
-        kw = dict(depth=model.config.max_depth,
-                  lr=model.config.learning_rate, base=model.base)
-        got = gbrt_predict_blocked(x2.to(dt), feats, thr, lvs, **kw)
-        want = gbrt_predict_blocked_plain(x2.to(dt), feats, thr, lvs, **kw)
-        errs[dt] = max_err(got, want)
-        if dt == f64 and not torch.equal(got, want):
-            fail(f"K2 float64 differs from its plain version ({errs[dt]})")
-        if not torch.allclose(got.double(), want.double(), rtol=tol,
-                              atol=tol):
-            fail(f"K2 float32 differs by {errs[dt]}")
-    feats, thr, lvs = kernel_operands(model, f64, dev)
     kw = dict(depth=model.config.max_depth, lr=model.config.learning_rate,
               base=model.base)
+    routes = []
+    for dt in (f64, f32):
+        feats, thr, lvs = kernel_operands(model, dt, dev)
+        npd = np.float64 if dt == f64 else np.float32
+        bnp = step_table(thr).breaks.cpu().numpy()
+        rng = np.random.default_rng(0)
+        adv = torch.as_tensor(np.stack([
+            adversarial(bnp[:1], chunk.size, npd, rng),
+            adversarial(bnp[1:], np.resize(np.asarray(CONFIGS, np.float64), N),
+                        npd, rng)], 1), device=dev)
+        for case, xs2 in (("chunk", x2.to(dt)), ("adversarial", adv)):
+            before = dict(gbrt_predict_blocked.routes)
+            got = gbrt_predict_blocked(xs2, feats, thr, lvs, **kw)
+            routes.append(next(k for k, v in
+                               gbrt_predict_blocked.routes.items()
+                               if v != before[k]))
+            want = gbrt_predict_blocked_plain(xs2, feats, thr, lvs, **kw)
+            errs[dt, case] = max_err(got, want)
+            if not bits_equal(got, want):
+                fail(f"K2 {dt} on the {case} rows differs from its plain "
+                     f"version ({errs[dt, case]})")
+    if set(routes) != {"table"}:
+        fail(f"K2 at (N, 2) did not take its table route: {routes}")
+    feats, thr, lvs = kernel_operands(model, f64, dev)
     T, I = feats.shape
     L = lvs.shape[1]
+    depth = model.config.max_depth
+    counts, cells = step_table(thr).counts, step_table(thr).cells
+
+    def k2():
+        return gbrt_predict_blocked(x2, feats, thr, lvs, **kw)
+
+    k2_bytes = N * 2 * 8 + T * (I * 12 + L * 8) + N * 8
+    walk_ms, walk_by = bound(k2_bytes, N * T * (depth + 2), "float64")
     rows.append(row(
         "gbrt_predict_blocked", "src/repro_torch/csrc/gbrt_predict.cu",
         "src/repro/kernels/gbrt_predict/kernel.py:166",
-        cuda_ms(lambda: gbrt_predict_blocked(x2, feats, thr, lvs, **kw), 20),
+        graph_ms(k2, 20),
         cuda_ms(lambda: gbrt_predict_blocked_plain(x2, feats, thr, lvs, **kw),
                 2),
-        errs[f64], N * 2 * 8 + T * (I * 12 + L * 8) + N * 8,
-        N * T * (model.config.max_depth + 2), "float64",
-        shape=f"N={N} F=2 T={T} I={I} L={L} f64", max_abs_err_f32=errs[f32]))
+        errs[f64, "chunk"], k2_bytes,
+        cells * T * (depth + 2) + N * (search_steps(cells) + 1), "float64",
+        eager_ms=cuda_ms(k2, 20), device_us=kernel_device_us(k2),
+        walk_bound_ms=walk_ms, walk_bound_by=walk_by, routes=routes,
+        breaks=list(counts), cells=cells,
+        max_abs_err_f32=errs[f32, "chunk"],
+        adversarial_max_abs_err=max(errs[dt, "adversarial"]
+                                    for dt in (f64, f32)),
+        shape=f"N={N} F=2 T={T} I={I} L={L} f64"))
 
     # ---- K3: surplus prefix in float64 (exact fold), RG-LRU shape in
     # float32 (chunked scan)
@@ -1526,6 +1655,7 @@ def serve(ctx, policy_fn, device, backend):
 
 def phase_serve(ctx, dev) -> dict:
     from repro_torch.core.decision import MinCostPolicy, MinLatencyPolicy
+    from repro_torch.kernels.gbrt_predict.kernel import gbrt_predict_blocked
 
     launches = {}
     policies = (("min_latency", lambda: MinLatencyPolicy(c_max=C_MAX,
@@ -1557,6 +1687,9 @@ def phase_serve(ctx, dev) -> dict:
             if name == "min_latency" or k != "linear_scan":
                 if counts[k] <= 0:
                     fail(f"{name}: {k} was not launched on the torch path")
+        if counts["gbrt_predict_multi"] != len(ctx["chunks"]):
+            fail(f"{name}: K1 ran {counts['gbrt_predict_multi']} times, not "
+                 f"once per chunk")
         if name == "min_latency":
             launches.update({k: counts[k] for k in
                              ("gbrt_predict_multi", "linear_scan",
@@ -1567,8 +1700,15 @@ def phase_serve(ctx, dev) -> dict:
             log(f"[serve] {name} numpy (cuda): {secs:.1f} s, "
                 f"{N_TASKS / secs:.0f} tasks/s, {split(rt)}, launches "
                 f"{json.dumps(counts)}, vs oracle {json.dumps(cmp)}")
-            if counts["gbrt_predict_blocked"] < len(ctx["chunks"]):
-                fail("the host prediction pass did not run K2 per chunk")
+            k2_routes = dict(gbrt_predict_blocked.routes)
+            log(f"[serve] {name} numpy (cuda): K2 routes "
+                f"{json.dumps(k2_routes)}")
+            if counts["gbrt_predict_blocked"] != \
+                    len(CONFIGS) * len(ctx["chunks"]) \
+                    or k2_routes != {"table": counts["gbrt_predict_blocked"],
+                                     "walk": 0}:
+                fail(f"the host prediction pass ran K2 {k2_routes}, not on "
+                     f"its table route once per config and chunk")
             launches["gbrt_predict_blocked"] = counts["gbrt_predict_blocked"]
     return {"launches": launches}
 

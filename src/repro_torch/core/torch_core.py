@@ -212,6 +212,22 @@ def _extract_cloud(tgt) -> _CloudSpec:
         vals=np.asarray(vals, np.float64))
 
 
+def padded_step_tables(tables) -> tuple[np.ndarray, np.ndarray]:
+    """The cloud configs' ``(breaks, vals)`` serving step tables as one
+    ``BR`` (C, bmax) of breaks padded with +inf and ``VL`` (C, bmax + 1) of
+    values padded with each config's last, for ``searchsorted`` + ``gather``
+    (the core's CPU route)."""
+    bmax = max(1, max(np.shape(b)[0] for b, _ in tables))
+    BR = np.full((len(tables), bmax), np.inf)
+    VL = np.zeros((len(tables), bmax + 1))
+    for i, (b, v) in enumerate(tables):
+        nb = np.shape(b)[0]
+        BR[i, :nb] = b
+        VL[i, :nb + 1] = v
+        VL[i, nb + 1:] = v[-1]
+    return BR, VL
+
+
 def _extract_edge(dev) -> _EdgeSpec:
     if type(dev) is not EdgeTarget:
         raise CoreIneligible(f"edge device {dev!r} is not an EdgeTarget")
@@ -326,14 +342,8 @@ class TorchPlacementCore:
 
         t: dict = {"K1000": put(1000.0)}
         if self.n_cloud:
-            bmax = max(1, max(c.breaks.shape[0] for c in self.cloud))
-            BR = np.full((self.n_cloud, bmax), np.inf)
-            VL = np.zeros((self.n_cloud, bmax + 1))
-            for i, c in enumerate(self.cloud):
-                nb = c.breaks.shape[0]
-                BR[i, :nb] = c.breaks
-                VL[i, :nb + 1] = c.vals
-                VL[i, nb + 1:] = c.vals[-1]
+            BR, VL = padded_step_tables([(c.breaks, c.vals)
+                                         for c in self.cloud])
             t["BR"] = put(BR)
             t["VL"] = put(VL)
             for key, attr in (("SW", "start_warm"), ("SC", "start_cold"),

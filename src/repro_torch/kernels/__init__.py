@@ -52,8 +52,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches`` and, where it has them, the
+    per-route counts of its ``routes``."""
     for fn in wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
 
 
 @contextlib.contextmanager

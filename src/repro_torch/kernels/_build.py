@@ -135,10 +135,13 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, queried
+    as PyTorch's compiled code does, without building a ``Stream`` object
+    on every launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def counted(wrapper) -> None:

@@ -5,6 +5,15 @@ a device once per (model identity, dtype, device), with a weakref guard: a
 refit swaps in a fresh model object, whose fresh id misses the cache, and a
 recycled id is caught before stale operands are served. So a streaming
 serve does no per-chunk operand preparation.
+
+Beside the ensemble arrays, each operand set's step-table layout
+(``kernel.StepTable``) is made here and recorded against its thresholds
+tensor, where the CUDA wrappers look it up: per searched feature the sorted
+distinct thresholds in the operand dtype (float32 ones after the +-3e38
+clip, where rounding can merge two float64 thresholds), NaN and +inf left
+out. It depends on the thresholds alone, so it lives as long as they do;
+the step tables' values (from ``mem``, ``lr``, ``base`` and the leaves) are
+built by the kernels on every call.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 from repro_torch.kernels.gbrt_predict.kernel import (
     gbrt_predict_blocked,
     gbrt_predict_multi,
+    record_step_table,
 )
 
 _OPERANDS: dict[tuple, tuple] = {}
@@ -58,16 +68,39 @@ def _thresholds(model, dtype) -> np.ndarray:
     return thr
 
 
+def step_breaks(groups, npd) -> tuple[np.ndarray, tuple[int, ...]]:
+    """``(breaks (len(groups), W), counts)``: each group's sorted distinct
+    thresholds of dtype ``npd``, NaN and +inf left out (a node whose
+    threshold is either sends every row left), padded with +inf to
+    ``W = max(counts) + 1``."""
+    rows = []
+    for th in groups:
+        th = np.asarray(th, npd)
+        rows.append(np.unique(th[~np.isnan(th) & (th != np.inf)]))
+    counts = tuple(int(r.shape[0]) for r in rows)
+    out = np.full((len(rows), max(counts, default=0) + 1), np.inf, npd)
+    for i, r in enumerate(rows):
+        out[i, :r.shape[0]] = r
+    return out, counts
+
+
 def kernel_operands(model, dtype=torch.float64, device="cpu") -> tuple:
     """``(features int32 (T, I), thresholds (T, I), leaves (T, L))`` of one
-    ensemble as tensors of ``dtype`` on ``device``."""
+    ensemble as tensors of ``dtype`` on ``device``, the thresholds carrying
+    the step table (``step_breaks``) of feature ids ``0 .. max id``."""
     device = torch.device(device)
     npd = np.float64 if dtype == torch.float64 else np.float32
 
     def build():
-        return (torch.as_tensor(np.asarray(model.features, np.int32),
-                                device=device),
-                torch.as_tensor(_thresholds(model, dtype), device=device),
+        feats = np.asarray(model.features, np.int32)
+        thr = _thresholds(model, dtype)
+        n_ids = int(feats.max()) + 1 if feats.size else 1
+        breaks, counts = step_breaks(
+            [thr[feats == f] for f in range(n_ids)], npd)
+        thr_t = torch.as_tensor(thr, device=device)
+        record_step_table(thr_t, torch.as_tensor(breaks, device=device),
+                          counts)
+        return (torch.as_tensor(feats, device=device), thr_t,
                 torch.as_tensor(np.asarray(model.leaves, npd), device=device))
 
     return _cached(_OPERANDS, (id(model), dtype, str(device)), (model,), build)
@@ -86,7 +119,9 @@ def multi_kernel_operands(models, dtype=torch.float64, device="cpu") -> tuple:
       slot ``j << (dmax - d)``.
 
     Returns ``(features (C,T,I) int32, thresholds (C,T,I), leaves (C,T,L),
-    lr (C,), base (C,), depth)`` as tensors of ``dtype`` on ``device``.
+    lr (C,), base (C,), depth)`` as tensors of ``dtype`` on ``device``, the
+    thresholds carrying the step table (``step_breaks``) of each config's
+    feature-0 thresholds of the padded stack.
     """
     models = tuple(models)
     device = torch.device(device)
@@ -112,8 +147,11 @@ def multi_kernel_operands(models, dtype=torch.float64, device="cpu") -> tuple:
             LV[c, :t, ::1 << (dmax - depths[c])] = np.asarray(m.leaves, npd)
             LR[c] = m.config.learning_rate
             BASE[c] = m.base
+        BR, counts = step_breaks([TH[c][F[c] == 0] for c in range(C)], npd)
         as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-        return (as_t(F), as_t(TH), as_t(LV), as_t(LR), as_t(BASE), dmax)
+        th = as_t(TH)
+        record_step_table(th, as_t(BR), counts)
+        return as_t(F), th, as_t(LV), as_t(LR), as_t(BASE), dmax
 
     key = (tuple(id(m) for m in models), dtype, str(device))
     return _cached(_MULTI_OPERANDS, key, models, build)

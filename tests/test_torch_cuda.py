@@ -7,13 +7,15 @@ available (the CUDA kernels have no CPU mode). Imports torch, numpy and
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Float64 results must be bit-equal to the plain versions (the same rounded
-operations in the same order), as must the linear scan's exact fold;
-float32 GBRT within 1e-4, the linear scan's chunked float32 regime and
-float32 attention within 5e-5, bf16 attention within 3e-2 (the reference's
-own kernel tolerances); the SSD scan's y within 1e-4 in float32 and within
-3e-2 of max(1, |y|) in bf16, its float32 state within 1e-4. The kernels'
-CPU-side parity with the JAX package is in ``tests/test_torch_modeling.py``
-and ``tests/test_torch_ssm.py``; here a small dense LM, a small Mamba-2 LM
+operations in the same order), as must the linear scan's exact fold and,
+in float32 too, the GBRT kernels (the same per-tree roundings;
+``test_kernels_on_card`` keeps its older float32 GBRT check, 1e-4); the
+linear scan's chunked float32 regime and float32 attention within 5e-5,
+bf16 attention within 3e-2 (the reference's own kernel tolerances); the
+SSD scan's y within 1e-4 in float32 and within 3e-2 of max(1, |y|) in
+bf16, its float32 state within 1e-4. The kernels' CPU-side parity with
+the JAX package is in ``tests/test_torch_modeling.py`` and
+``tests/test_torch_ssm.py``; here a small dense LM, a small Mamba-2 LM
 and live executors run on the card, the decode step from its CUDA graph.
 The replay-input helpers are shared with ``tests/test_torch_kernels.py``;
 K6's bf16 limits on y by its scale (``SSD_ROW_TOL``, ``SSD_MEAN_TOL``) and
@@ -32,9 +34,19 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.gbrt import GBRT, GBRTConfig
+from repro_torch.kernels.gbrt_predict.kernel import (
+    blocked_route,
+    gbrt_predict_blocked,
+    gbrt_predict_blocked_plain,
+    gbrt_predict_multi,
+    gbrt_predict_multi_plain,
+    step_table,
+)
 from repro_torch.kernels.gbrt_predict.ops import (
     gbrt_predict,
     gbrt_predict_configs,
+    kernel_operands,
+    multi_kernel_operands,
 )
 from repro_torch.kernels.linear_scan.kernel import (
     linear_scan_bsd,
@@ -123,6 +135,199 @@ def test_kernels_on_card(cuda_device, rng):
     for a_, b_ in zip(got, want):
         assert torch.equal(a_.cpu(), b_), "state_replay"
     assert kernels.launch_counts()["state_replay"] >= 1
+
+
+def gbrt_data(rng, n_features):
+    """400 seeded rows over ``n_features`` columns and a target that every
+    column moves."""
+    x = rng.normal(size=(400, n_features)) * 100.0
+    y = sum(np.sin(x[:, f] / (20.0 + 10.0 * f)) * (f + 1.0)
+            for f in range(n_features)) + x[:, 0] * 0.05
+    return x, y
+
+
+def gbrt_fit(rng, n_features, depth, n_trees, n_bins=64):
+    """A seeded ensemble over ``n_features`` columns, each of them used."""
+    return GBRT.fit(*gbrt_data(rng, n_features),
+                    GBRTConfig(n_trees=n_trees, max_depth=depth,
+                               n_bins=n_bins))
+
+
+def gbrt_adversarial(breaks, rng, npd, n):
+    """``chip_smoke.adversarial`` over ``n`` seeded sizes."""
+    return SMOKE.adversarial(breaks, rng.normal(size=n) * 300.0, npd, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [0, 1, 4097, 65_536])
+def test_gbrt_multi_table_on_card(cuda_device, rng, n, dtype):
+    """K1's step table against the CPU plain walk, bit for bit: configs of
+    depths 2-4 padded to one stack, a repeated model, and sizes at every
+    break, its neighbours, NaN, +-inf and +-0.0."""
+    models = [gbrt_fit(rng, 2, d, t) for d, t in [(2, 20), (3, 50), (4, 10)]]
+    models.append(models[0])
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    cpu = multi_kernel_operands(models, dtype)
+    dev = multi_kernel_operands(models, dtype, cuda_device)
+    BR = step_table(cpu[1]).breaks.numpy()
+    sizes = torch.as_tensor(np.concatenate(
+        [gbrt_adversarial(BR[c], rng, npd, n // 4 + 1) for c in range(4)])[:n])
+    mem = torch.tensor([1280.0, 1536.0, 1792.0, 2048.0], dtype=dtype)
+    want = gbrt_predict_multi_plain(sizes, mem, *cpu[3:5], *cpu[:3],
+                                    depth=cpu[5])
+    before = gbrt_predict_multi.launches
+    got = gbrt_predict_multi(sizes.to(cuda_device), mem.to(cuda_device),
+                             *dev[3:5], *dev[:3], depth=dev[5])
+    torch.cuda.synchronize()
+    assert SMOKE.bits_equal(got, want)
+    assert gbrt_predict_multi.launches - before == (1 if n else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_configs", [1, 3, 6])
+def test_gbrt_multi_table_config_counts_on_card(cuda_device, rng, n_configs):
+    """K1 at config counts that are not a multiple of the lookup's four
+    lockstep searches, bit-equal to the CPU plain walk in float64."""
+    base = [gbrt_fit(rng, 2, d, t) for d, t in [(3, 40), (2, 15), (4, 8)]]
+    models = [base[c % 3] for c in range(n_configs)]
+    cpu = multi_kernel_operands(models)
+    dev = multi_kernel_operands(models, torch.float64, cuda_device)
+    BR = step_table(cpu[1]).breaks.numpy()
+    sizes = torch.as_tensor(np.concatenate(
+        [gbrt_adversarial(BR[c], rng, np.float64, 700)
+         for c in range(n_configs)]))
+    mem = torch.as_tensor(rng.uniform(1000.0, 3000.0, size=n_configs))
+    want = gbrt_predict_multi_plain(sizes, mem, *cpu[3:5], *cpu[:3],
+                                    depth=cpu[5])
+    got = gbrt_predict_multi(sizes.to(cuda_device), mem.to(cuda_device),
+                             *dev[3:5], *dev[:3], depth=dev[5])
+    torch.cuda.synchronize()
+    assert SMOKE.bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gbrt_tables_rebuilt_every_call_on_card(cuda_device, rng):
+    """K1 and K2 with their tables' inputs (K1's memories, K2's leaves)
+    changed between calls in place, so every call reuses the buffers of
+    the last: eagerly, alternating two tables 20 times, and replayed from
+    one CUDA graph (each lookup a programmatic dependent of its build), the
+    bits of the CPU plain walk every time."""
+    m = gbrt_fit(rng, 2, 3, 50)
+    f, th, lv = kernel_operands(m, torch.float64, cuda_device)
+    F1, TH1, LV1, LR1, BASE1, depth = multi_kernel_operands(
+        [m, m], torch.float64, cuda_device)
+    sizes = torch.as_tensor(
+        gbrt_adversarial(step_table(th).breaks[0].cpu().numpy(), rng,
+                         np.float64, 4097), device=cuda_device)
+    x2 = torch.stack([sizes, sizes.flip(0)], 1).contiguous()
+    mem = torch.empty(2, dtype=torch.float64, device=cuda_device)
+    leaves = lv.clone()
+    kw = dict(depth=3, lr=m.config.learning_rate, base=m.base)
+    tables = [(torch.tensor([1280.0, 2048.0]), lv.cpu()),
+              (torch.tensor([-50.0, 75.0]), lv.cpu() * -0.5 + 1.0)]
+    wants = [(gbrt_predict_multi_plain(sizes.cpu(), mm, LR1.cpu(),
+                                       BASE1.cpu(), F1.cpu(), TH1.cpu(),
+                                       LV1.cpu(), depth=depth),
+              gbrt_predict_blocked_plain(x2.cpu(), f.cpu(), th.cpu(), ll,
+                                         **kw)) for mm, ll in tables]
+
+    def calls():
+        return (gbrt_predict_multi(sizes, mem, LR1, BASE1, F1, TH1, LV1,
+                                   depth=depth),
+                gbrt_predict_blocked(x2, f, th, leaves, **kw))
+
+    for i in range(20):
+        mem.copy_(tables[i % 2][0])
+        leaves.copy_(tables[i % 2][1])
+        got1, got2 = calls()
+        assert SMOKE.bits_equal(got1, wants[i % 2][0]), f"K1, call {i}"
+        assert SMOKE.bits_equal(got2, wants[i % 2][1]), f"K2, call {i}"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out1, out2 = calls()
+    for i in range(6):
+        mem.copy_(tables[i % 2][0])
+        leaves.copy_(tables[i % 2][1])
+        g.replay()
+        torch.cuda.synchronize()
+        assert SMOKE.bits_equal(out1, wants[i % 2][0]), f"K1, replay {i}"
+        assert SMOKE.bits_equal(out2, wants[i % 2][1]), f"K2, replay {i}"
+
+
+def _blocked_case(rng, dtype, n, n_features, n_bins=64):
+    m = gbrt_fit(rng, n_features, 3, 60, n_bins)
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    feats, thr, lvs = kernel_operands(m, dtype)
+    br = step_table(thr).breaks.numpy()
+    cols = [gbrt_adversarial(br[f], rng, npd, n) for f in range(n_features)]
+    x = torch.as_tensor(np.stack(cols, 1).reshape(n, n_features))
+    kw = dict(depth=3, lr=m.config.learning_rate, base=m.base)
+    want = gbrt_predict_blocked_plain(x, feats, thr, lvs, **kw)
+    return m, x, kw, step_table(thr).counts, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [0, 1, 4097, 65_536])
+def test_gbrt_blocked_table_on_card(cuda_device, rng, n, dtype):
+    """K2 at F = 2 takes its table route and is bit-equal to the CPU plain
+    walk on the adversarial rows."""
+    m, x, kw, counts, want = _blocked_case(rng, dtype, n, 2)
+    assert blocked_route(counts) == "table"
+    before = dict(gbrt_predict_blocked.routes)
+    feats, thr, lvs = kernel_operands(m, dtype, cuda_device)
+    got = gbrt_predict_blocked(x.to(cuda_device), feats, thr, lvs, **kw)
+    torch.cuda.synchronize()
+    assert SMOKE.bits_equal(got, want)
+    assert gbrt_predict_blocked.routes["table"] - before["table"] == (
+        1 if n else 0)
+    assert gbrt_predict_blocked.routes["walk"] == before["walk"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["F3_table", "F4_walk"])
+def test_gbrt_blocked_routes_on_card(cuda_device, rng, case, dtype):
+    """K2's routes past F = 2: three coarse features fit a table; four
+    features of ~60 breaks each exceed its 4,096 cells and take the walk.
+    Each bit-equal to the CPU plain walk."""
+    n_features, n_bins, route = {"F3_table": (3, 8, "table"),
+                                 "F4_walk": (4, 64, "walk")}[case]
+    m, x, kw, counts, want = _blocked_case(rng, dtype, 4097, n_features,
+                                           n_bins)
+    assert blocked_route(counts) == route
+    before = dict(gbrt_predict_blocked.routes)
+    feats, thr, lvs = kernel_operands(m, dtype, cuda_device)
+    got = gbrt_predict_blocked(x.to(cuda_device), feats, thr, lvs, **kw)
+    torch.cuda.synchronize()
+    assert SMOKE.bits_equal(got, want)
+    assert {k: gbrt_predict_blocked.routes[k] - before[k]
+            for k in before} == {route: 1, ("walk" if route == "table"
+                                            else "table"): 0}
+
+
+@pytest.mark.cuda
+def test_gbrt_blocked_rejects_ids_past_f_on_card(cuda_device, rng):
+    """A model that tests feature 1, over one column on the card: K2 raises
+    ValueError and launches nothing; and a thresholds tensor without a
+    recorded step table (a copy) is refused too."""
+    m = gbrt_fit(rng, 2, 3, 20)
+    feats, thr, lvs = kernel_operands(m, torch.float64, cuda_device)
+    kw = dict(depth=3, lr=m.config.learning_rate, base=m.base)
+    x = torch.zeros((64, 1), dtype=torch.float64, device=cuda_device)
+    before = gbrt_predict_blocked.launches
+    with pytest.raises(ValueError, match="past x's 1 columns"):
+        gbrt_predict_blocked(x, feats, thr, lvs, **kw)
+    with pytest.raises(ValueError, match="no step table"):
+        gbrt_predict_blocked(x.expand(64, 2).contiguous(), feats,
+                             thr.clone(), lvs, **kw)
+    assert gbrt_predict_blocked.launches == before
 
 
 @pytest.mark.cuda
