@@ -94,6 +94,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to the oracle; K1 runs once per chunk. Every kernel's launch count is
    zeroed just before the run that drives it and read just after; each must
    be > 0, the fallback-chunk count 0, and the residency counters clean;
+3b. the what-if planner's path (``plan``; each part logs its seconds,
+   tasks/s, launches and verdict): (a) serve the MinLatency stream once more
+   on the card with ``keep_inputs=True`` (floats within 1e-9 of phase 3's
+   oracle), ``capture`` it with its observed latencies, round-trip the
+   trace through JSONL and NPZ (each ``equal``) and replay it through
+   ``serve_stream(TraceWorkload(trace).chunks(65_536))``: bit-identical to
+   the card stream; (b) record IR, FD and STT, 262,144 Poisson arrivals
+   each (``twin.poisson(seed=3)``; the reference bench serves 500,000 per
+   app), merge them, and evaluate one candidate (the fleet above, MinLatency
+   as in phase 3) through ``Planner.evaluate`` in sequential, thread and
+   spawned-process mode: per-shard records identical across the modes, each
+   shard K1 once per chunk and at least one walk, replay and linear scan;
+   (c) the 8 candidates of ``bench_runtime.run_trace_planner`` (1-4
+   devices x edge-only / mixed) in a halving search (3 rungs, the smallest
+   2,048) over (b)'s STT trace, in threads, SLO 95% within 40 s: the winner
+   meets it, is verified on the full trace and is the cheapest that meets
+   it (over (a)'s bursty trace no candidate meets it); (d) the same 8 as a
+   grid over (a)'s first 16,384 tasks on the card and with the numpy
+   oracle on the CPU: ranking, n and attainment identical, floats within
+   1e-9; (e) FD, 65,536 tasks in chunks of 16,384, under the faults of
+   ``examples/chaos_serve.py`` (``edge1`` out from 35% to 65% of the span,
+   15% transient errors on config 1792) with retries and a breaker, on the
+   card against the numpy oracle (decisions and retries identical, floats
+   within 1e-9), then captured with its ``FaultSpec`` and replayed with
+   ``fault_spec_of``: bit-identical;
 4. build llama3.2-1b (16 layers, d_model 2048, 1.5 B parameters), then
    mamba2-780m (48 layers, d_model 1536, 857 M parameters), at full width on
    the card from a seeded generator, in float32, and a CPU copy of the same
@@ -184,6 +209,16 @@ SSD_MEAN_TOL = 2.0 ** -12
 # tolerance is that gap with a 2.6x margin.
 FULL_WIDTH_TOL = 1e-4
 SSM_LONG_TOL = 5e-4
+# phase 3b (plan): the what-if planner's path. (b) serves three 262,144-task
+# apps (the reference bench, benchmarks/bench_runtime.py:626, serves 500,000
+# per app: cut to phase 3's stream size for the run's time); (d) holds the
+# card's planner to the numpy oracle on a prefix (the full-size oracle would
+# take minutes at ~4,000 tasks/s); (e) serves FD under the chaos example's
+# faults (examples/chaos_serve.py)
+PLAN_APPS, N_SHARD, N_ORACLE, N_FAULT = ("IR", "FD", "STT"), 262_144, 16_384, \
+    65_536
+FAULT_CHUNK = 16_384
+PLAN_SLO_MS, PLAN_SLO_TARGET, PLAN_RATE = 40_000.0, 0.95, 0.05
 ARCH, SSM_ARCH = "llama3.2-1b", "mamba2-780m"
 PROMPT_LEN, DECODE_STEPS, SSM_LONG_PROMPT = 32, 8, 300
 LIVE_C_MAX, LIVE_ALPHA = 0.004, 0.02
@@ -239,6 +274,7 @@ def main() -> int:
     rows += timed("attention", phase_attention, dev)
     rows += timed("ssd", phase_ssd, dev)
     serve = timed("serve", phase_serve, ctx, dev)
+    timed("plan", phase_plan, ctx, dev, serve["oracle"])
     timed("model", phase_model, dev, ARCH)
     timed("model ssm", phase_model, dev, SSM_ARCH, SSM_LONG_PROMPT)
     lives = [timed("live", phase_live, dev, ARCH),
@@ -1694,6 +1730,7 @@ def phase_serve(ctx, dev) -> dict:
             launches.update({k: counts[k] for k in
                              ("gbrt_predict_multi", "linear_scan",
                               "state_replay", "state_walk")})
+            min_latency_oracle = ref
         else:
             rt, res, secs, counts = serve(ctx, policy_fn, dev, "numpy")
             cmp = compare(f"{name} numpy on cuda", ref, res, exact=True)
@@ -1710,7 +1747,316 @@ def phase_serve(ctx, dev) -> dict:
                 fail(f"the host prediction pass ran K2 {k2_routes}, not on "
                      f"its table route once per config and chunk")
             launches["gbrt_predict_blocked"] = counts["gbrt_predict_blocked"]
-    return {"launches": launches}
+    return {"launches": launches, "oracle": min_latency_oracle}
+
+
+# ------------------------------------------------------------------ phase 4
+PATH_KERNELS = ("gbrt_predict_multi", "linear_scan", "state_walk",
+                "state_replay")
+
+
+def shard_launches(name, stats: dict, chunks: int) -> None:
+    """A shard on the card runs K1 once per chunk and at least one walk, one
+    replay and (MinLatency) one linear scan."""
+    got = stats["launches"]
+    if got.get("gbrt_predict_multi") != chunks or any(
+            got.get(k, 0) < 1 for k in PATH_KERNELS[1:]):
+        fail(f"{name}: shard launches {got}, expected K1 x {chunks} and at "
+             f"least one of {PATH_KERNELS[1:]}")
+
+
+def plan_candidates():
+    """The 8 candidates of benchmarks/bench_runtime.py::run_trace_planner:
+    fleets of 1-4 devices x {edge-only, mixed C_MAX/ALPHA}."""
+    from repro_torch.planner import Candidate, PolicySpec
+
+    edge_only = PolicySpec(kind="min_latency", c_max=0.0)
+    mixed = PolicySpec(kind="min_latency", c_max=C_MAX, alpha=ALPHA)
+    return [Candidate.make(f"fleet-{k}-{tag}", k, policy=pol,
+                           cloud_configs=CONFIGS, chunk_size=CHUNK,
+                           device_rate_per_hour=PLAN_RATE)
+            for k in (1, 2, 3, 4)
+            for tag, pol in (("edge", edge_only), ("mixed", mixed))]
+
+
+def record_trace(twin, n: int, app: str):
+    """``n`` Poisson arrivals of ``app`` (``twin.poisson(seed=3)``) recorded
+    as a trace, column by column (as bench_runtime._record_trace)."""
+    import numpy as np
+
+    from repro_torch.trace import Trace
+
+    cols = ([], [], [])
+    for c in twin.poisson(seed=3).chunks(n, CHUNK):
+        for col, a in zip(cols, (c.arrival_ms, c.size, c.bytes)):
+            col.append(a)
+    return Trace.from_arrays(*(np.concatenate(x) for x in cols),
+                             app_names=(app,))
+
+
+def plan_part(name, n, secs, launches, verdict) -> None:
+    log(f"[plan] ({name}) {secs:.1f} s, {n / secs:.0f} tasks/s, launches "
+        f"{json.dumps(launches)}: {verdict}")
+
+
+def phase_plan(ctx, dev, oracle) -> None:
+    """The planner's path on the card: (a) capture and replay, (b) three-app
+    shards in sequential, thread and spawned-process mode, (c) the 8-candidate
+    halving search, (d) its grid against the numpy oracle, (e) a faulted
+    stream and its replay."""
+    from repro_torch import kernels
+    from repro_torch.core.decision import MinLatencyPolicy
+    from repro_torch.trace import TraceWorkload, capture, load
+
+    # (a) the phase-3 MinLatency stream once more, captured and replayed
+    rt = runtime(ctx, MinLatencyPolicy(c_max=C_MAX, alpha=ALPHA), dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rt.serve_stream(iter(ctx["chunks"]), chunk_size=CHUNK,
+                          array_backend="torch", keep_inputs=True)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    cmp = compare("plan (a) card stream", oracle, res, exact=False)
+    trace = capture(res, app="STT", observed=True)
+    out = ROOT / "build" / "plan"
+    out.mkdir(parents=True, exist_ok=True)
+    t1 = time.perf_counter()
+    for ext in ("jsonl", "npz"):
+        path = out / f"stt.{ext}"
+        trace.save(path)
+        if not load(path).equal(trace):
+            fail(f"plan (a): the {ext} round trip is not equal")
+    io_s = time.perf_counter() - t1
+    plan_part("a stream", N_TASKS, secs, counts,
+              f"vs oracle {json.dumps(cmp)}; capture + JSONL/NPZ round "
+              f"trips equal in {io_s:.1f} s")
+    rt = runtime(ctx, MinLatencyPolicy(c_max=C_MAX, alpha=ALPHA), dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = rt.serve_stream(TraceWorkload(trace).chunks(chunk_size=CHUNK),
+                          array_backend="torch")
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    compare("plan (a) replay vs card stream", res, rep, exact=True)
+    if counts["gbrt_predict_multi"] != len(ctx["chunks"]):
+        fail(f"plan (a) replay: K1 ran {counts['gbrt_predict_multi']} times")
+    plan_part("a replay", N_TASKS, secs, counts,
+              "bit-identical to the card stream")
+
+    stt = plan_shards(dev)
+    plan_search(stt, dev)
+    plan_oracle(trace, dev)
+    plan_faults(dev)
+
+
+def plan_shards(dev):
+    """(b) IR, FD and STT as one merged trace, evaluated as one candidate in
+    the three modes; per-shard records identical, K1 once per chunk.
+    Returns the STT trace."""
+    from repro_torch.planner import SLO, Candidate, Planner, PolicySpec
+    from repro_torch.planner.candidates import fitted
+    from repro_torch.trace import merge
+
+    t0 = time.perf_counter()
+    mixed = merge({app: record_trace(
+        fitted(app, seed=0, n_inputs=120, configs=CONFIGS)[0], N_SHARD, app)
+        for app in PLAN_APPS})
+    log(f"[plan] (b) {mixed.n} tasks of {mixed.app_names} recorded and "
+        f"merged in {time.perf_counter() - t0:.1f} s")
+    mixed3 = Candidate("mixed3", tuple(FLEET.items()),
+                       PolicySpec("min_latency", c_max=C_MAX, alpha=ALPHA),
+                       cloud_configs=CONFIGS)
+    planner = Planner(mixed, SLO(PLAN_SLO_MS, PLAN_SLO_TARGET),
+                      fit_configs=CONFIGS, device=str(dev))
+    chunks = -(-N_SHARD // CHUNK)
+    runs = {}
+    for mode, kw in (("sequential", {"parallel": False}),
+                     ("thread", {}), ("process", {"use_processes": True})):
+        t0 = time.perf_counter()
+        score = planner.evaluate([mixed3], **kw)[0]
+        secs = time.perf_counter() - t0
+        sharded = planner.last_sharded
+        if sharded.mode != mode:
+            fail(f"plan (b): ran in {sharded.mode}, not {mode}")
+        for app in PLAN_APPS:
+            shard_launches(f"plan (b) {mode} {app}",
+                           sharded.stream_stats[f"mixed3/{app}"], chunks)
+        runs[mode] = (sharded, score)
+        plan_part(f"b {mode}", mixed.n, secs,
+                  {app: sharded.stream_stats[f"mixed3/{app}"]["launches"]
+                   for app in PLAN_APPS},
+                  f"attainment {score.attainment}, total cost "
+                  f"{score.total_cost}, shard walls "
+                  f"{json.dumps({k: round(v, 2) for k, v in sharded.wall_s.items()})}")
+    base = runs["sequential"][0]
+    for mode in ("thread", "process"):
+        for shard, r in base.results.items():
+            compare(f"plan (b) {mode} {shard}", r,
+                    runs[mode][0].results[shard], exact=True)
+    log("[plan] (b) per-shard records identical across the three modes")
+    return mixed.for_app("STT")
+
+
+def _scores_match(name, ref, got) -> float:
+    if [s.candidate.name for s in ref] != [s.candidate.name for s in got]:
+        fail(f"{name}: ranking {[s.candidate.name for s in got]} differs "
+             f"from the oracle's {[s.candidate.name for s in ref]}")
+    worst = 0.0
+    for a, b in zip(ref, got):
+        if (a.n, a.attainment, a.meets_slo, a.per_app_attainment) != \
+                (b.n, b.attainment, b.meets_slo, b.per_app_attainment):
+            fail(f"{name}: {a.candidate.name} n/attainment differ")
+        for f in ("cloud_cost", "fleet_cost", "mean_latency_ms",
+                  "p50_latency_ms", "p95_latency_ms", "p99_latency_ms",
+                  "makespan_ms"):
+            x, y = getattr(a, f), getattr(b, f)
+            err = abs(x - y) / max(abs(x), 1e-300) if x != y else 0.0
+            worst = max(worst, err)
+            if err > FLOAT_TOL:
+                fail(f"{name}: {a.candidate.name} {f} {y} vs {x}")
+    return worst
+
+
+def plan_search(trace, dev) -> None:
+    """(c) the halving search on the card, in threads, over the STT Poisson
+    trace of (b) — the trace benchmarks/bench_runtime.py::run_trace_planner
+    searches (there at 50,000 tasks). Over (a)'s bursty 40/s trace no
+    candidate meets the SLO (the numpy oracle on a CPU: each mixed fleet
+    attains 94.69% over all 262,144 tasks, the edge-only fleets rank below
+    them in (d)), so there the search could verify no winner."""
+    from repro_torch import kernels
+    from repro_torch.planner import SLO, Planner
+
+    slo = SLO(PLAN_SLO_MS, PLAN_SLO_TARGET)
+    planner = Planner(trace, slo, fit_configs=CONFIGS, device=str(dev))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = planner.plan(plan_candidates(), strategy="halving", rungs=3,
+                       min_rung_n=2_048)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    regrows: dict[str, int] = {}
+    for rung in res.stream_stats:
+        for shard, st in rung.items():
+            cand = shard.split("/")[0]
+            regrows[cand] = regrows.get(cand, 0) + \
+                st["residency"]["pool_regrows"]
+            shard_launches(f"plan (c) {shard}", st, st["chunks"])
+    best = res.best
+    meeting = [s for s in res.scores if s.meets_slo]
+    if res.mode != "thread" or not best.meets_slo or best.n != trace.n \
+            or best.total_cost != min(s.total_cost for s in meeting):
+        fail(f"plan (c): best {best.candidate.name} (meets "
+             f"{best.meets_slo}, n {best.n}) is not the verified cheapest "
+             f"SLO-meeting candidate:\n{res.table()}")
+    for line in res.table().splitlines():
+        log(f"[plan] (c) {line}")
+    log(f"[plan] (c) rungs {json.dumps(res.rungs)}; pool regrows per "
+        f"candidate {json.dumps(regrows)}")
+    plan_part("c halving", res.replayed_tasks, secs, counts,
+              f"best {best.candidate.name}, verified on all {best.n} tasks")
+
+
+def plan_oracle(trace, dev) -> None:
+    """(d) the 8 candidates' grid over the first N_ORACLE tasks of (a)'s
+    trace, on the card against the numpy oracle on the CPU."""
+    from repro_torch import kernels
+    from repro_torch.planner import SLO, Planner
+
+    slo = SLO(PLAN_SLO_MS, PLAN_SLO_TARGET)
+    prefix = trace.prefix(N_ORACLE)
+    grids = {}
+    for label, kw in (("numpy (cpu)", {"array_backend": "numpy",
+                                       "device": "cpu"}),
+                      ("torch (cuda)", {"device": str(dev)})):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        grids[label] = Planner(prefix, slo, fit_configs=CONFIGS, **kw).plan(
+            plan_candidates(), strategy="grid")
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if label.startswith("numpy") and any(counts.values()):
+            fail(f"plan (d): the numpy oracle launched kernels {counts}")
+        plan_part(f"d grid {label}", grids[label].replayed_tasks, secs,
+                  counts, f"best {grids[label].best.candidate.name}")
+    worst = _scores_match("plan (d)", grids["numpy (cpu)"].scores,
+                          grids["torch (cuda)"].scores)
+    log(f"[plan] (d) ranking, n and attainment identical to the numpy "
+        f"oracle, floats within {worst} (limit {FLOAT_TOL})")
+
+
+def plan_faults(dev) -> None:
+    """(e) FD under the chaos example's faults, on the card against the
+    numpy oracle, then captured with its spec and replayed."""
+    from repro_torch import kernels
+    from repro_torch.core.decision import DecisionEngine, MinLatencyPolicy
+    from repro_torch.core.faults import (
+        CircuitBreaker,
+        FaultSpec,
+        OutageWindow,
+        RetryPolicy,
+        TransientErrors,
+    )
+    from repro_torch.core.fit import build_fleet_predictor
+    from repro_torch.core.runtime import PlacementRuntime, TwinBackend
+    from repro_torch.planner.candidates import fitted
+    from repro_torch.trace import TraceWorkload, capture, fault_spec_of
+
+    twin, models = fitted("FD", seed=0, n_inputs=120, configs=CONFIGS)
+    chunks = list(twin.poisson(seed=3).chunks(N_FAULT, FAULT_CHUNK))
+    span = float(chunks[-1].arrival_ms[-1])
+    spec = FaultSpec(seed=7,
+                     outages=[OutageWindow("edge1", 0.35 * span, 0.65 * span)],
+                     transient=[TransientErrors("1792", 0.15)])
+
+    def run(workload, faults, device, backend):
+        pred = build_fleet_predictor(models, dict(FLEET), configs=CONFIGS)
+        eng = DecisionEngine(predictor=pred, policy=MinLatencyPolicy(
+            c_max=C_MAX, alpha=ALPHA), device=device)
+        rt = PlacementRuntime(
+            eng, TwinBackend(twin, seed=11, edge_names=tuple(FLEET),
+                             edge_speed=FLEET, faults=faults),
+            retry=RetryPolicy(max_attempts=4, backoff_ms=50.0,
+                              backoff_mult=2.0),
+            breaker=CircuitBreaker(threshold=3, probation_ms=30_000.0))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = rt.serve_stream(workload, chunk_size=FAULT_CHUNK,
+                              array_backend=backend, keep_inputs=True)
+        return rt, res, time.perf_counter() - t0, kernels.launch_counts()
+
+    _, ref, secs, _ = run(iter(chunks), spec, "cpu", "numpy")
+    plan_part("e faults numpy (cpu)", N_FAULT, secs, {},
+              f"retried {ref.n_retried}, failed {ref.n_failed}")
+    rt, res, secs, counts = run(iter(chunks), spec, dev, "torch")
+    cmp = compare("plan (e) faulted card stream", ref, res, exact=False)
+    fb = rt.stream_stats["residency"]["fallback_chunks"]
+    if not (ref.n_retried > 0 and res.n_retried == ref.n_retried
+            and np_equal(ref.records.attempts, res.records.attempts)
+            and np_equal(ref.records.failed, res.records.failed)):
+        fail("plan (e): the card's retries differ from the oracle's")
+    if any(counts[k] < 1 for k in PATH_KERNELS):
+        fail(f"plan (e): the faulted stream launched {counts}")
+    plan_part("e faults torch (cuda)", N_FAULT, secs, counts,
+              f"retried {res.n_retried}, failed {res.n_failed}, "
+              f"fallback_chunks {fb}, vs oracle {json.dumps(cmp)}")
+    trace = capture(res, app="FD", faults=spec)
+    if fault_spec_of(trace) != spec:
+        fail("plan (e): the captured trace lost its fault spec")
+    _, rep, secs, counts = run(
+        TraceWorkload(trace).chunks(chunk_size=FAULT_CHUNK),
+        fault_spec_of(trace), dev, "torch")
+    compare("plan (e) faulted replay", res, rep, exact=True)
+    if not np_equal(res.records.attempts, rep.records.attempts):
+        fail("plan (e): the replay's retries differ")
+    plan_part("e replay", N_FAULT, secs, counts,
+              "bit-identical to the faulted card stream")
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
 
 
 def split(rt) -> str:

@@ -1112,7 +1112,8 @@ class PlacementRuntime:
           copies its task columns to the device while chunk k places.
 
         ``stream_stats["residency"]`` afterwards reports the resident-chunk
-        / sync / prefetch counters for this stream, and ``fallback_chunks``,
+        / sync / prefetch counters for this stream, the walks run again
+        after a pool overflow (``pool_regrows``), and ``fallback_chunks``,
         the chunks that took the numpy path.
         """
         if chunk_size < 1:
@@ -1152,7 +1153,8 @@ class PlacementRuntime:
                 base = {"state_syncs": c0.state_syncs,
                         "fallback_syncs": c0.fallback_syncs,
                         "resident_chunks": c0.resident_chunks,
-                        "chunk_commits": c0.chunk_commits}
+                        "chunk_commits": c0.chunk_commits,
+                        "pool_regrows": c0.pool_regrows}
             base["fallback_chunks"] = eng.fallback_chunks
             if residency:
                 eng.__dict__["_device_residency"] = True
@@ -1225,6 +1227,8 @@ class PlacementRuntime:
                     - base.get("fallback_syncs", 0),
                     "chunk_commits": core.chunk_commits
                     - base.get("chunk_commits", 0),
+                    "pool_regrows": core.pool_regrows
+                    - base.get("pool_regrows", 0),
                     "prefetched": pf["prefetched"]}
             stats.setdefault("residency", {})["fallback_chunks"] = \
                 eng.fallback_chunks - base["fallback_chunks"]

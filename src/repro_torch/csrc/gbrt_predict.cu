@@ -59,6 +59,9 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -348,11 +351,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------- launches
+// Let `kernel` take `bytes` of dynamic shared memory. The limit belongs to the
+// function and is shared by every host thread, so it is raised once per device
+// to all the device allows and never set to one launch's size: shards and
+// planner candidates launch at their own sizes from several threads at once,
+// and a launch must not find the limit lowered under its size by another one.
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> limits;  // (device, kernel) -> bytes
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const std::lock_guard<std::mutex> lock(mu);
+  auto it = limits.find({dev, (const void*)kernel});
+  if (it == limits.end()) {
+    int optin = 0;
+    cudaFuncAttributes fa = {};
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    const int limit = optin - (int)fa.sharedSizeBytes;
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (e != cudaSuccess) return (int)e;
+    it = limits.emplace(std::make_pair(dev, (const void*)kernel), limit).first;
+  }
+  return bytes > (size_t)it->second ? (int)cudaErrorInvalidValue : 0;
 }
 
 int blocks(long long n, int per) { return (int)((n + per - 1) / per); }

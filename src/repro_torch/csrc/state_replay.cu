@@ -69,6 +69,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -1100,6 +1104,35 @@ __global__ void walk_chain_floor_kernel(double inc, int R, double* out) {
   if (tid == 0) out[0] = x[(R + 1) & 1];
 }
 
+// Let `kernel` take `bytes` of dynamic shared memory. The limit belongs to the
+// function and is shared by every host thread, so it is raised once per device
+// to all the device allows and never set to one launch's size: shards and
+// planner candidates launch at their own sizes from several threads at once,
+// and a launch must not find the limit lowered under its size by another one.
+template <typename K>
+int opt_in_smem(K kernel, long long bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> limits;  // (device, kernel) -> bytes
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const std::lock_guard<std::mutex> lock(mu);
+  auto it = limits.find({dev, (const void*)kernel});
+  if (it == limits.end()) {
+    int optin = 0;
+    cudaFuncAttributes fa = {};
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    const int limit = optin - (int)fa.sharedSizeBytes;
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (e != cudaSuccess) return (int)e;
+    it = limits.emplace(std::make_pair(dev, (const void*)kernel), limit).first;
+  }
+  return bytes > it->second ? (int)cudaErrorInvalidValue : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1125,11 +1158,8 @@ int state_walk_f64(const double* nows, int R, int n, int nd, int lpw, const doub
   if (nc > 32) return (int)cudaErrorInvalidValue;  // the decider's config masks
   const long long bytes = state_walk_smem_bytes(nd, nc, cap);
   const WalkKernel kernel = walk_kernel(nc);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = opt_in_smem(kernel, bytes);
+  if (e) return e;
   const int threads = kWarp * walk_block_warps(nc);
   kernel<<<1, threads, (size_t)bytes, (cudaStream_t)stream>>>(
       nows, R, n, nd, lpw, ecomp, elat, h0, nom_fixed, nc, cap, t_idl, latw, latc, costc,
@@ -1176,11 +1206,8 @@ int state_replay_f64(const double* nows, const int* guess, int R, int nd, int lp
                      replay_ring_rows(nd)};
   const long long bytes = replay_smem(nd, nc, cap);
   const ReplayKernel kernel = replay_kernel(nd);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = opt_in_smem(kernel, bytes);
+  if (e) return e;
   kernel<<<blocks, kWarp * REPLAY_WARPS, (size_t)bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

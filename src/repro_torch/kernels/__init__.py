@@ -7,7 +7,8 @@ or raises. Every wrapper counts its launches in a plain integer attribute
 ``launches`` (incremented where the kernel is launched and nowhere else);
 ``launch_counts``/``reset_launch_counts`` read and zero them all.
 ``recording`` tallies the launches of one thread alone, as a CUDA-graph
-capture needs while other threads launch kernels of their own.
+capture needs while other threads launch kernels of their own; its blocks
+nest.
 
 Importing this package imports torch only: the kernels are compiled
 (``_build``) the first time a wrapper meets a CUDA tensor.
@@ -64,16 +65,19 @@ def reset_launch_counts() -> None:
 def recording():
     """Tally, by kernel name, the launches that the calling thread makes
     inside the block; launches of other threads are not seen. Yields the
-    dict, filled when the block ends."""
+    dict, filled when the block ends. Blocks nest: the launches of an inner
+    block count in every block around it too."""
     from repro_torch.kernels import _build
 
-    if getattr(_build._RECORDING, "tally", None) is not None:
-        raise RuntimeError("recording blocks do not nest")
+    outer = getattr(_build._RECORDING, "tally", None)
     _build._RECORDING.tally = tally = {}
     out: dict[str, int] = {}
     try:
         yield out
     finally:
-        _build._RECORDING.tally = None
+        _build._RECORDING.tally = outer
+        if outer is not None:
+            for fn, n in tally.items():
+                outer[fn] = outer.get(fn, 0) + n
         out.update({name: tally[fn] for name, fn in wrappers().items()
                     if fn in tally})

@@ -15,9 +15,10 @@ them; ``library`` builds a single missing one on demand. Nothing here runs
 when the package is imported.
 
 A wrapper passes tensor pointers and PyTorch's current stream as
-``c_void_p`` and raises when the C function returns a CUDA error code (the C
-side returns ``cudaGetLastError()`` right after the launch, so a refused
-launch never passes silently).
+``c_void_p`` and raises ``KernelLaunchError`` when the C function returns a
+CUDA error code (the C side returns ``cudaGetLastError()`` right after the
+launch, so a refused launch never passes silently). A kernel that cannot be
+built raises it too.
 """
 
 from __future__ import annotations
@@ -43,7 +44,14 @@ FMAD_SOURCES = ("flash_attention", "decode_attention")
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()  # guards every wrapper's ``launches``
 _RECORDING = threading.local()  # .tally: {wrapper: launches} of this thread
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel of the port could not be built, or the card refused its
+    launch. Callers that turn executor errors into retryable failures
+    re-raise it (``serving.placement.is_cuda_error``)."""
 
 
 def nvcc() -> str:
@@ -54,8 +62,8 @@ def nvcc() -> str:
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and Path(cand).is_file():
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit "
-                       "or put nvcc on PATH")
+    raise KernelLaunchError("nvcc not found: set CUDA_HOME to the CUDA "
+                            "toolkit or put nvcc on PATH")
 
 
 def flags(name: str) -> tuple[str, ...]:
@@ -101,7 +109,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         report[name] = {"seconds": time.perf_counter() - t0, "log": log,
                         "path": str(out)}
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelLaunchError("nvcc failed for " + "\n".join(failed))
     return report
 
 
@@ -146,9 +154,12 @@ def stream_of(t) -> int:
 
 def counted(wrapper) -> None:
     """Add one to ``wrapper.launches``: each wrapper calls this where it has
-    launched its kernel, and nowhere else. A launch is also tallied for the
-    calling thread when it is inside ``repro_torch.kernels.recording``."""
-    wrapper.launches += 1
+    launched its kernel, and nowhere else. The increment holds a lock, so
+    threads that launch at once (sharded runtimes) lose no count. A launch
+    is also tallied for the calling thread when it is inside
+    ``repro_torch.kernels.recording``."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
     tally = getattr(_RECORDING, "tally", None)
     if tally is not None:
         tally[wrapper] = tally.get(wrapper, 0) + 1
@@ -156,7 +167,8 @@ def counted(wrapper) -> None:
 
 def check(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
+        raise KernelLaunchError(
+            f"{what}: CUDA launch failed with error code {rc}")
 
 
 def strides(*tensors) -> ctypes.Array:

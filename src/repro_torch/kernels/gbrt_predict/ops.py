@@ -37,6 +37,9 @@ F32_BIG = 3.0e38
 
 
 def _cached(cache: dict, key, models, build):
+    """The operands cached under ``key``, built once. The build runs under
+    the lock, so threads that serve one model at once (sharded runtimes)
+    share one operand set, and ``_STEP_TABLES`` is written under it."""
     with _OPERAND_LOCK:
         hit = cache.get(key)
         if hit is not None:
@@ -44,12 +47,11 @@ def _cached(cache: dict, key, models, build):
             if all(r() is m for r, m in zip(refs, models)):
                 return val
             cache.pop(key, None)  # id recycled by a swap: stale
-    val = build()
-    try:
-        refs = tuple(weakref.ref(m) for m in models)
-    except TypeError:
-        return val  # non-weakrefable model: serve uncached
-    with _OPERAND_LOCK:
+        val = build()
+        try:
+            refs = tuple(weakref.ref(m) for m in models)
+        except TypeError:
+            return val  # non-weakrefable model: serve uncached
         if len(cache) > 128:  # drop entries whose model is gone
             for k in [k for k, (rs, _) in cache.items()
                       if any(r() is None for r in rs)]:

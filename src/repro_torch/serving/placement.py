@@ -36,6 +36,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from repro_torch.core.cil import ContainerInfoList
 from repro_torch.core.decision import DecisionEngine, Policy
@@ -57,6 +58,7 @@ from repro_torch.core.records import (  # noqa: F401 — re-export
 from repro_torch.core.faults import TRANSIENT, AdmissionPolicy, CircuitBreaker, RetryPolicy
 from repro_torch.core.runtime import ExecutionBatch, ExecutionOutcome, PlacementRuntime
 from repro_torch.core.workload import PoissonWorkload, TaskInput
+from repro_torch.kernels._build import KernelLaunchError
 from repro_torch.serving.executors import (
     ExecutorPool,
     LiveExecutor,
@@ -326,7 +328,10 @@ class LiveBackend:
         # ``map_failures`` on, a dispatch that raises comes back as a FAILED
         # ``ExecutionOutcome`` (transient, retryable) instead of propagating,
         # so ``PlacementRuntime``'s retry / failover / breaker loop drives
-        # real executor errors exactly like the twin's injected ones.
+        # real executor errors exactly like the twin's injected ones. A
+        # sticky CUDA error or a refused kernel launch is never mapped
+        # (``is_cuda_error``): it would come back as a stream of "transient"
+        # failures that hide the faulty kernel.
         self.map_failures = map_failures
         self.detect_ms = detect_ms
 
@@ -342,7 +347,9 @@ class LiveBackend:
             return self._execute_raw(task, target, now)
         try:
             return self._execute_raw(task, target, now)
-        except Exception:
+        except Exception as e:
+            if is_cuda_error(e):
+                raise
             return ExecutionOutcome(
                 latency_ms=self.detect_ms, cost=0.0, cold=False,
                 completion_ms=now + self.detect_ms,
@@ -452,6 +459,16 @@ def make_live_runtime(cat: SliceCatalog, policy: Policy,
                           map_failures=retry is not None or breaker is not None)
     return PlacementRuntime(engine=engine, backend=backend, retry=retry,
                             admission=admission, breaker=breaker)
+
+
+def is_cuda_error(e: BaseException) -> bool:
+    """A CUDA error that must stop the serve: ``torch.AcceleratorError`` (a
+    sticky device error, such as an illegal address) or a kernel of the port
+    that could not be built or launched (``_build.KernelLaunchError``).
+    ``LiveBackend`` re-raises these instead of mapping them to a transient
+    failure. An out-of-memory error is not one of them: the allocator
+    recovers from it, so it stays mapped, as in the reference."""
+    return isinstance(e, (torch.AcceleratorError, KernelLaunchError))
 
 
 # --------------------------------------------------------------- live server

@@ -1104,6 +1104,80 @@ def test_walk_row_counts_on_card(cuda_device, rng, rows):
 
 
 @pytest.mark.cuda
+def test_launches_at_other_sizes_from_other_threads_on_card(cuda_device, rng):
+    """Shards and planner candidates in threads launch the walk, the replay
+    and K1 at once, each at its own shared-memory size (fleets of 1-4
+    devices, pools of 256-2048 slots, 1-6 configs): every launch runs and
+    equals its plain version. A launch must never find its function's
+    shared-memory limit set under its own size by another thread."""
+    import threading
+
+    from repro_torch.kernels.state_replay.kernel import (
+        smem_bytes,
+        state_replay_plain,
+        state_walk,
+        state_walk_plain,
+    )
+
+    shapes = [(1, 1024, 1), (4, 256, 6), (2, 2048, 3), (3, 512, 4)]
+    assert len({smem_bytes(nd, 4, cap) for nd, cap, _ in shapes}) == 4
+    base = [gbrt_fit(rng, 2, d, t) for d, t in [(3, 40), (2, 15), (4, 8)]]
+    dev = lambda kw: {k: v.to(cuda_device) if torch.is_tensor(v) else v
+                      for k, v in kw.items()}
+    jobs = []
+    for nd, cap, C in shapes:
+        tn, tkw = walk_inputs(rng, 1500, nd, 4, cap, True, 30)
+        walk_kw = dict(tkw, minlat=True)
+        nows, guess, kw = replay_inputs(rng, 1500, nd, 4, cap, True, 30)
+        rn, rg, rkw = to_torch(nows, guess, kw)
+        models = [base[c % 3] for c in range(C)]
+        cpu = multi_kernel_operands(models)
+        ops = multi_kernel_operands(models, torch.float64, cuda_device)
+        sizes = torch.as_tensor(rng.normal(size=5000) * 300.0)
+        mem = torch.as_tensor(rng.uniform(1000.0, 3000.0, size=C))
+        want = (state_walk_plain(tn, 1500, **walk_kw),
+                state_replay_plain(rn, rg, **rkw),
+                gbrt_predict_multi_plain(sizes, mem, *cpu[3:5], *cpu[:3],
+                                         depth=cpu[5]))
+        calls = (
+            lambda tn=tn.to(cuda_device), kw=dev(walk_kw):
+                state_walk(tn, 1500, **kw),
+            lambda rn=rn.to(cuda_device), rg=rg.to(cuda_device),
+                   kw=dev(rkw): state_replay(rn, rg, **kw),
+            lambda s=sizes.to(cuda_device), m=mem.to(cuda_device), o=ops:
+                gbrt_predict_multi(s, m, *o[3:5], *o[:3], depth=o[5]))
+        jobs.append((calls, want))
+    start = threading.Barrier(len(jobs))
+    outs = [[] for _ in jobs]
+    errors = []
+
+    def run(i):
+        try:
+            start.wait()
+            for _ in range(100):
+                outs[i].append(tuple(call() for call in jobs[i][0]))
+        except Exception as e:  # noqa: BLE001 - re-raised in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    for (_, want), got in zip(jobs, outs):
+        assert len(got) == 100
+        for walk, replay, k1 in got:
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(walk, want[0]))
+            assert all(torch.equal(a.cpu(), b)
+                       for a, b in zip(replay, want[1]))
+            assert SMOKE.bits_equal(k1, want[2])
+
+
+@pytest.mark.cuda
 def test_walk_chain_floor_on_card(cuda_device):
     """The chain-floor probe runs its R steps: thread 0's chain ends at
     R x inc, every warp folds each step's value."""
@@ -1407,3 +1481,92 @@ def test_flash_attention_f32_bit_stable_after_live_serve_on_card(
     assert not differ, (differ, d_got, d_want)
     assert float((first - want).abs().max()) <= ATTN_TOL[torch.float32], (
         d_got, d_want)
+
+
+def _stt_planner_fixture():
+    """The 600-task STT trace and 3 candidates of ``tests/test_planner.py``
+    (fleets of 1-3 devices, edge-only), in the port's types."""
+    from repro_torch.core.workload import PoissonWorkload
+    from repro_torch.planner import Candidate, PolicySpec
+    from repro_torch.planner.candidates import fitted
+    from repro_torch.trace import Trace
+
+    configs = (1280, 1536, 1792, 2048)
+    twin, _ = fitted("STT", seed=0, n_inputs=120, configs=configs)
+    tasks = PoissonWorkload(rate_per_s=0.12, size_sampler=twin.sample_input,
+                            seed=5).generate(600)
+    pol = PolicySpec(kind="min_latency", c_max=0.0)
+    cands = [Candidate.make(f"fleet-{k}", k, policy=pol,
+                            cloud_configs=configs, chunk_size=256,
+                            device_rate_per_hour=0.05) for k in (1, 2, 3)]
+    return Trace.from_tasks(tasks, app="STT"), cands, configs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [
+    dict(parallel=False), dict(parallel=True),
+    dict(parallel=True, use_processes=True)],
+    ids=["sequential", "thread", "process"])
+def test_planner_modes_on_card(cuda_device, mode):
+    """The planner on the card (``device=None``: the card) in each mode
+    ranks the fixture's candidates as the numpy oracle on the CPU does, n
+    and attainment identical and every float within 1e-9; each shard ran
+    K1 once per chunk and at least one walk and replay. Process mode spawns
+    its children, which build their runtimes on the card."""
+    from repro_torch.planner import SLO, Planner
+
+    trace, cands, configs = _stt_planner_fixture()
+    slo = SLO(latency_ms=40_000.0, target=0.95)
+    ref = Planner(trace, slo, fit_configs=configs, array_backend="numpy",
+                  device="cpu").plan(cands, parallel=False)
+    planner = Planner(trace, slo, fit_configs=configs)
+    got = planner.plan(cands, **mode)
+    assert got.mode == ("sequential" if not mode["parallel"] else
+                        "process" if mode.get("use_processes") else "thread")
+    assert got.best.candidate.name == ref.best.candidate.name == "fleet-2"
+    assert [s.candidate.name for s in got.scores] == \
+        [s.candidate.name for s in ref.scores]
+    for a, b in zip(ref.scores, got.scores):
+        assert (a.n, a.attainment, a.meets_slo) == (b.n, b.attainment,
+                                                    b.meets_slo)
+        for f in ("cloud_cost", "fleet_cost", "mean_latency_ms",
+                  "p99_latency_ms", "makespan_ms"):
+            np.testing.assert_allclose(getattr(b, f), getattr(a, f),
+                                       rtol=1e-9, err_msg=f)
+    for shard, st in planner.last_sharded.stream_stats.items():
+        launches = st["launches"]
+        assert launches["gbrt_predict_multi"] == st["chunks"], shard
+        assert launches["state_walk"] >= 1 and launches["state_replay"] >= 1
+        assert st["residency"]["fallback_chunks"] == 0
+
+
+@pytest.mark.cuda
+def test_trace_capture_and_replay_on_card(cuda_device, tmp_path):
+    """A card stream captured with ``keep_inputs=True``, saved as JSONL and
+    loaded back, replays to bit-identical records on the card."""
+    from repro_torch.core.decision import DecisionEngine, MinLatencyPolicy
+    from repro_torch.core.fit import build_fleet_predictor, fit_app
+    from repro_torch.core.runtime import PlacementRuntime, TwinBackend
+    from repro_torch.trace import TraceWorkload, capture, load
+
+    configs, fleet = (1280, 1536, 1792), {"edge0": 1.0, "edge1": 1.0,
+                                           "edge2": 0.6}
+    twin, models = fit_app("IR", seed=0, n_inputs=120, configs=configs)
+
+    def runtime():
+        pred = build_fleet_predictor(models, dict(fleet), configs=configs)
+        eng = DecisionEngine(predictor=pred, array_backend="torch",
+                             policy=MinLatencyPolicy(c_max=6e-6, alpha=0.05))
+        return PlacementRuntime(eng, TwinBackend(
+            twin, seed=11, edge_names=tuple(fleet), edge_speed=fleet))
+
+    res = runtime().serve_stream(twin.poisson(seed=3).chunks(3000, 1024),
+                                 keep_inputs=True)
+    capture(res, app="IR").save(tmp_path / "ir.jsonl")
+    rep = runtime().serve_stream(
+        TraceWorkload(load(tmp_path / "ir.jsonl")).chunks(chunk_size=1024))
+    assert list(rep.records.targets) == list(res.records.targets)
+    for col in ("actual_latency_ms", "actual_cost", "actual_cold",
+                "predicted_latency_ms", "completion_ms"):
+        assert np.array_equal(getattr(rep.records, col),
+                              getattr(res.records, col)), col

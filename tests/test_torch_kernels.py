@@ -434,3 +434,42 @@ def test_state_replay_wrapper_reuses_out_buffers(rng):
     assert got.busy is out[0] and got.last is out[1] and got.cnt is out[2]
     ref = state_replay_plain(tn, tg, **tkw)
     assert torch.equal(got.busy, ref.busy) and torch.equal(got.cnt, ref.cnt)
+
+
+def test_operands_built_once_under_concurrent_threads(monkeypatch):
+    """Shards in threads ask for one model's operands at once: the build
+    runs under the operand lock, so every thread gets the one operand set
+    and its step table (``_STEP_TABLES`` is written under the lock)."""
+    import threading
+
+    from repro_torch.kernels.gbrt_predict import ops
+    from repro_torch.kernels.gbrt_predict.kernel import step_table
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(256, 2))
+    models = [GBRT.fit(x, x[:, 0] * k, GBRTConfig(n_trees=20, max_depth=3))
+              for k in (1.0, 2.0)]
+    builds = []
+    breaks = ops.step_breaks
+
+    def slow_breaks(*args, **kwargs):
+        builds.append(1)
+        threading.Event().wait(0.01)  # a thread switch inside the build
+        return breaks(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "step_breaks", slow_breaks)
+    start = threading.Barrier(8)
+    out = [None] * 8
+
+    def ask(i):
+        start.wait()
+        out[i] = ops.multi_kernel_operands(models)
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1
+    assert all(o is out[0] for o in out)
+    assert step_table(out[0][1]).counts

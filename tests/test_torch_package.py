@@ -5,11 +5,13 @@
 - ``import repro_torch`` (and every module of the slice) works without
   triton and without CUDA, and imports neither triton nor jax;
 - entry points (placement, model steps, executors, pools, calibration, the
-  live runtime and the serve CLI) raise without CUDA unless the caller
-  passes ``device="cpu"``;
+  live runtime, the serve CLI, the planner, its runtime factory and the
+  deprecated ``Simulation``) raise without CUDA unless the caller passes
+  ``device="cpu"``;
 - a CPU tensor runs a kernel's plain version and leaves every launch
   counter at 0;
-- ``kernels.recording`` tallies the launches of the calling thread alone;
+- ``kernels.recording`` tallies the launches of the calling thread alone,
+  and the launch counters lose no count under concurrent threads;
 - each CUDA source's nvcc flags (``-fmad=false`` on all but
   ``flash_attention``) and the library hash over them.
 """
@@ -73,6 +75,9 @@ def test_import_needs_no_triton_and_no_cuda():
         "import repro_torch.modeling.mamba, repro_torch.modeling.ssd\n"
         "import repro_torch.modeling.registry, repro_torch.modeling.convert\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
+        "import repro_torch.core, repro_torch.core.multiapp\n"
+        "import repro_torch.core.simulator, repro_torch.trace\n"
+        "import repro_torch.planner\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'repro')]\n"
         "assert not bad, bad\n"
@@ -135,6 +140,51 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         rt.serve_stream(twin.workload(8), array_backend="torch",
                         device="cuda")
     assert repro_torch.DTYPE == torch.float64
+
+
+def test_planner_and_simulation_raise_without_cuda(monkeypatch):
+    """The planner, its runtime factory and the deprecated ``Simulation``
+    (through the engine it is given) default to the card and raise without
+    one; ``device="cpu"`` is the only way onto the CPU."""
+    from repro_torch.core.decision import DecisionEngine, MinLatencyPolicy
+    from repro_torch.core.fit import build_fleet_predictor, fit_app
+    from repro_torch.core.simulator import Simulation
+    from repro_torch.planner import (
+        SLO,
+        Candidate,
+        Planner,
+        TwinRuntimeFactory,
+        plan,
+    )
+    from repro_torch.trace import Trace
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trace = Trace.from_arrays([0.0, 5.0], [1e5, 2e5], [1e3, 1e3],
+                              app_names=("IR",))
+    cand = Candidate.make("c", 1, cloud_configs=(1536,))
+    slo = SLO(latency_ms=1e4)
+    twin, models = fit_app("IR", seed=0, n_inputs=40, configs=(1536,))
+    for call in (lambda: Planner(trace, slo),
+                 lambda: plan(trace, [cand], slo, fit_configs=(1536,)),
+                 lambda: TwinRuntimeFactory(app="IR", candidate=cand),
+                 lambda: Simulation(twin, DecisionEngine(
+                     predictor=build_fleet_predictor(models, 1,
+                                                     configs=(1536,)),
+                     policy=MinLatencyPolicy(c_max=1e-5)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    factory = TwinRuntimeFactory(app="IR", candidate=cand, n_inputs=40,
+                                 fit_configs=(1536,), device="cpu")
+    assert factory().engine.device == torch.device("cpu")
+    res = plan(trace, [cand], slo, n_inputs=40, fit_configs=(1536,),
+               device="cpu", parallel=False)
+    assert res.best.n == 2
+    eng = DecisionEngine(predictor=build_fleet_predictor(models, 1,
+                                                         configs=(1536,)),
+                         policy=MinLatencyPolicy(c_max=1e-5), device="cpu")
+    with pytest.warns(DeprecationWarning):
+        sim = Simulation(twin, eng)
+    assert sim.engine.device == torch.device("cpu")
 
 
 def test_serving_entry_points_raise_without_cuda(monkeypatch):
@@ -230,7 +280,8 @@ def test_cpu_tensors_launch_no_kernel(rng):
 def test_recording_sees_only_its_own_thread():
     """A wrapper's count takes every thread's launches; a ``recording``
     block tallies those of its own thread, as a graph capture in one
-    executor needs while another executor's thread launches kernels."""
+    executor needs while another executor's thread launches kernels. Blocks
+    nest: an inner block's launches count in the block around it."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_bhd,
@@ -252,17 +303,58 @@ def test_recording_sees_only_its_own_thread():
         inside.set()
         done.wait()
         _build.counted(decode_attention_bhd)
-        _build.counted(decode_attention_bhd)
-        with pytest.raises(RuntimeError, match="nest"):
-            with kernels.recording():
-                pass
+        with kernels.recording() as inner:  # blocks nest
+            _build.counted(decode_attention_bhd)
+            _build.counted(flash_attention_bhsd)
+        assert inner == {"decode_attention": 1, "flash_attention": 1}
     t.join()
-    assert tally == {"decode_attention": 2}
+    assert tally == {"decode_attention": 2, "flash_attention": 1}
     counts = kernels.launch_counts()
-    assert counts["decode_attention"] == 2 and counts["flash_attention"] == 3
+    assert counts["decode_attention"] == 2 and counts["flash_attention"] == 4
     _build.counted(decode_attention_bhd)  # outside the block: not tallied
-    assert tally == {"decode_attention": 2}
+    assert tally == {"decode_attention": 2, "flash_attention": 1}
     kernels.reset_launch_counts()
+
+
+def test_launch_counts_survive_concurrent_threads():
+    """``counted`` takes a lock: 8 threads x 10,000 calls on one wrapper
+    add up to exactly 80,000 (sharded runtimes launch from many threads).
+    The dummy's ``launches`` is a Python property, so its read and its
+    write are separate frames a thread switch can fall between (without the
+    lock this loses most of the counts)."""
+    from repro_torch.kernels import _build
+
+    class Counter:
+        n = 0
+
+        @property
+        def launches(self):
+            return self.n
+
+        @launches.setter
+        def launches(self, value):
+            self.n = value
+
+    dummy = Counter()
+
+    start = threading.Barrier(8)
+
+    def hammer():
+        start.wait()
+        for _ in range(10_000):
+            _build.counted(dummy)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as possible
+    try:
+        threads = [threading.Thread(target=hammer) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(old)
+    assert dummy.launches == 80_000
 
 
 def test_launch_counts_change_only_where_kernels_launch():

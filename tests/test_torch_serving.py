@@ -322,3 +322,54 @@ def test_serve_cli_on_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert rc == 0
     assert f"on {arch}" in out and "served n=6" in out
+
+
+def _kernel_launch_error():
+    from repro_torch.kernels._build import KernelLaunchError
+
+    return KernelLaunchError(
+        "flash_attention: CUDA launch failed with error code 700")
+
+
+@pytest.mark.parametrize("error,mapped", [
+    (torch.AcceleratorError("CUDA error: an illegal memory access was "
+                            "encountered"), False),
+    (_kernel_launch_error(), False),
+    (torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"),
+     True),
+    (RuntimeError("expected all tensors to be on cuda:0"), True),
+    (RuntimeError("executor lease expired"), True),
+    (ValueError("bad payload"), True),
+    (TimeoutError("slice did not answer"), True),
+], ids=["accelerator", "refused_launch", "cuda_oom", "names_cuda", "runtime",
+        "value", "timeout"])
+def test_live_backend_never_maps_a_cuda_error(monkeypatch, error, mapped):
+    """With ``map_failures`` on (any retry or breaker policy), a dispatch
+    that raises comes back as a TRANSIENT failure, as in the reference —
+    except a sticky CUDA error or a kernel that could not be built or
+    launched, which is re-raised so a failed kernel is not hidden behind a
+    stream of retries. An out-of-memory error stays mapped: the allocator
+    recovers from it. The message's text decides nothing."""
+    from repro_torch.core.faults import TRANSIENT
+    from repro_torch.core.workload import TaskInput
+    from repro_torch.serving.placement import LiveBackend, is_cuda_error
+
+    backend = LiveBackend(pool=None, pricing=None, map_failures=True,
+                          detect_ms=5.0)
+
+    def raising(task, target, now):
+        raise error
+
+    monkeypatch.setattr(backend, "_execute_raw", raising)
+    task = TaskInput(idx=0, arrival_ms=10.0, size=8.0, bytes=64.0)
+    assert is_cuda_error(error) is not mapped
+    if mapped:
+        out = backend.execute(task, "s2", 10.0)
+        assert out.failed and out.fail_kind == TRANSIENT
+        assert out.completion_ms == 15.0 and out.cost == 0.0
+    else:
+        with pytest.raises(type(error)):
+            backend.execute(task, "s2", 10.0)
+    backend.map_failures = False
+    with pytest.raises(type(error)):
+        backend.execute(task, "s2", 10.0)
