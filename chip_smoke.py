@@ -27,7 +27,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``table_route_ms``); the linear scan (K3) bit-equal in its
    exact-fold regime as the float64 surplus prefix of a 65,536-row chunk
    (65,537 rows with the seed), and within 5e-5 in its chunked regime in
-   float32 at an RG-LRU shape (B=2, S=4096, D=1024); its row also records
+   float32 at an RG-LRU shape (B=2, S=4096, D=1024) and at
+   recurrentgemma-9b's (D=4096: its serving prefill, S=32, and S=4096);
+   its row also records
    whether ``torch.cumsum`` gives the left fold's bits on that prefix
    (``library_bit_equal``, ``library_max_ulps``), the time of a one-thread
    chain of 65,537 dependent float64 adds in registers from the same
@@ -51,10 +53,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shared memory as the library computes them (``state_walk_layout``),
    which the host's mirror of them must equal;
    flash attention (K4) at llama3.2-1b's prefill shape (q (1, 32, 32, 64),
-   k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and
-   flash decode (K5) at its decode shape (k/v (1, 8, 32, 64), length 33) and
-   at B=4, S=4096 with ragged lengths and one length above S, within 5e-5 in
-   float32 and 3e-2 in bf16, in bf16 also each (batch, head) row within
+   k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and at
+   recurrentgemma-9b's (head_dim 256, 16 query heads on one KV head, window
+   2048: its serving prefill, S=32, and S=4096 in bf16 and float32), and
+   flash decode (K5) at llama's decode shape (k/v (1, 8, 32, 64), length
+   33), at B=4, S=4096 with ragged lengths and one length above S, and at
+   recurrentgemma-9b's (head_dim 256, one KV head: its 32-slot serving
+   ring and a full 2,048-slot one, in bf16 and float32), within 5e-5 in
+   float32 and 3e-2 in bf16 (the Griffin shapes also against the literal
+   oracles ``attention_ref`` and ``decode_attention_ref`` within the same
+   limits), in bf16 also each (batch, head) row within
    2**-6 of its largest |output| (``row_err``; two planted faults, a dropped
    split and one masked slot let through, must exceed that limit:
    ``fault_row_err``), its row recording the split count at each
@@ -120,27 +128,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    within 1e-9), then captured with its ``FaultSpec`` and replayed with
    ``fault_spec_of``: bit-identical;
 4. build llama3.2-1b (16 layers, d_model 2048, 1.5 B parameters), then
-   mamba2-780m (48 layers, d_model 1536, 857 M parameters), at full width on
-   the card from a seeded generator, in float32, and a CPU copy of the same
-   weights; run a (1, 32) prefill and 8 teacher-forced decode steps (llama's
-   past its cache, through the reference's clamped write) on both, and hold
-   the card's logits and cache (K4, K5, K6, cuBLAS) to the CPU's (plain
+   mamba2-780m (48 layers, d_model 1536, 857 M parameters), then
+   recurrentgemma-9b (d_model 4096, 10.4 B parameters; here cut to 5 of
+   its 38 layers, one (rec, rec, attn) group and the (rec, rec) tail) at
+   full width on the card from a seeded generator, in float32, and a CPU
+   copy of the same weights; run a (1, 32) prefill and 8 teacher-forced
+   decode steps (llama's past its cache, through the reference's clamped
+   write; recurrentgemma's wrapping its 32-slot ring) on both, and hold the
+   card's logits and cache (K3, K4, K5, K6, cuBLAS) to the CPU's (plain
    versions) within ``FULL_WIDTH_TOL``; for mamba2-780m also a 300-token
-   prefill (3 chunks, the last padded) within ``SSM_LONG_TOL``; then, in
-   bf16 as an executor serves each model, hold a decode step replayed from
-   its CUDA graph to the eager step (bit-equal over 8 steps) and time
-   prefill and decode;
-5. serve live, for each of the two models: calibrate the slice catalog at
-   full width (slices of 2, 4 and 8 chips, 8 tasks, 1 cold start each) and
-   serve 48 Poisson requests (20/s, 96 tokens on average) under
-   ``MinLatencyPolicy(c_max=0.004, alpha=0.02)`` through
+   prefill (3 chunks, the last padded) within ``SSM_LONG_TOL``, for
+   recurrentgemma-9b a 2,304-token one (past its window) within
+   ``FULL_WIDTH_TOL``; then, in bf16 at full depth as an executor serves
+   each model, hold a decode step replayed from its CUDA graph to the
+   eager step (bit-equal over 8 steps) and the prefill replayed from its
+   CUDA graph to the eager prefill (logits and every cache tensor
+   bit-equal, on two prompts), and time prefill (eager and graph) and
+   decode;
+5. serve live, for each of the three models: calibrate the slice catalog at
+   full width (slices of 2, 4 and 8 chips; of 4 and 8 for
+   recurrentgemma-9b, of which three executors fit on the card; 8 tasks, 1
+   cold start each) and serve 48 Poisson requests (20/s, 96 tokens on
+   average) under ``MinLatencyPolicy(c_max=0.004, alpha=0.02)`` through
    ``make_live_runtime(...).serve`` on the card. Every task must be served
    and none fail or be shed, the peak allocated memory must stay under 90%
    of the card, and the model's kernels (counts zeroed just before the
-   serve, read just after) must have launched: K4 and K5 for llama3.2-1b,
-   whose decode graphs replay K5 alone, ``n_layers`` launches per step; K6
-   for mamba2-780m, ``n_layers`` launches per prefill, whose decode graphs
-   replay no kernel of the port;
+   serve, read just after, with the graphs' replays) must have launched:
+   K4 and K5 for llama3.2-1b, whose prefill graphs replay K4 and decode
+   graphs K5, ``n_layers`` launches each; K6 for mamba2-780m, whose prefill
+   graphs replay it ``n_layers`` times and decode graphs no kernel of the
+   port; K3, K4 and K5 for recurrentgemma-9b, whose prefill graphs replay
+   K3 once per recurrent layer and K4 once per attention layer, and decode
+   graphs K5 once per attention layer;
 6. launch K4 in float32 100 times at its card test's first case,
    (1, 32, 32, 8, 64) causal, after the live serves in this process: every
    output must have the same bits (recorded in K4's row with each side's
@@ -149,10 +168,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    line (K1-K6, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
 
-A kernel's ``launches`` are its wrapper's count: the calls that launched it
-(or recorded it into a CUDA graph at a capture). The launches that decode
-graph replays run are counted apart, as ``graph_replayed``, from the graphs'
-own tally (``serving.engine.replayed_launches``).
+A kernel's ``launches`` are its wrapper's count over its main paths' runs
+(the placement stream and the live serves): the calls that launched it (or
+recorded it into a CUDA graph at a capture). The launches that prefill and
+decode graph replays run are counted apart, as ``graph_replayed``, from the
+graphs' own tally (``serving.engine.replayed_launches``).
 """
 
 from __future__ import annotations
@@ -221,10 +241,26 @@ FAULT_CHUNK = 16_384
 PLAN_SLO_MS, PLAN_SLO_TARGET, PLAN_RATE = 40_000.0, 0.95, 0.05
 ARCH, SSM_ARCH = "llama3.2-1b", "mamba2-780m"
 PROMPT_LEN, DECODE_STEPS, SSM_LONG_PROMPT = 32, 8, 300
+# recurrentgemma-9b (10.4 B parameters): its float32 card-vs-CPU check runs
+# at full width with the depth cut to 5 layers, one (rec, rec, attn) group
+# and the (rec, rec) tail (41.8 GB of float32 weights at full depth would
+# sit on the card and again on the host); its long prefill (past the
+# 2,048-token window: the mask bites and the ring rolls by 256) is held to
+# FULL_WIDTH_TOL as the short one is: the last token's arithmetic differs
+# from a short prompt's only in the window's 2,048 keys and in the length
+# of the recurrence, whose rounding errors decay with a < 1. Its bf16
+# checks and its live serve run all 38 layers. A bf16 executor holds 19.1
+# GB of bf16 and 3.5 GB of float32 weights, so at most three fit under the
+# live serve's 90% memory limit: it serves two cloud slices and the edge
+HYBRID_ARCH, HYBRID_DEPTH, HYBRID_LONG_PROMPT = "recurrentgemma-9b", 5, 2304
+WINDOW = 2048  # recurrentgemma-9b's local-attention window
+LIVE_SLICES = {ARCH: (2, 4, 8), SSM_ARCH: (2, 4, 8), HYBRID_ARCH: (4, 8)}
 LIVE_C_MAX, LIVE_ALPHA = 0.004, 0.02
-# the kernels each arch's live serve must launch
+# the kernels each arch's live serve must launch (eagerly or from a graph)
 LIVE_KERNELS = {ARCH: ("flash_attention", "decode_attention"),
-                SSM_ARCH: ("ssd_scan",)}
+                SSM_ARCH: ("ssd_scan",),
+                HYBRID_ARCH: ("linear_scan", "flash_attention",
+                              "decode_attention")}
 
 DECISION_COLS = ("predicted_cold", "feasible")
 FLOAT_COLS = ("predicted_latency_ms", "predicted_cost", "allowed_cost")
@@ -276,14 +312,21 @@ def main() -> int:
     serve = timed("serve", phase_serve, ctx, dev)
     timed("plan", phase_plan, ctx, dev, serve["oracle"])
     timed("model", phase_model, dev, ARCH)
-    timed("model ssm", phase_model, dev, SSM_ARCH, SSM_LONG_PROMPT)
+    timed("model ssm", phase_model, dev, SSM_ARCH, SSM_LONG_PROMPT,
+          SSM_LONG_TOL)
+    timed("model hybrid", phase_model, dev, HYBRID_ARCH, HYBRID_LONG_PROMPT,
+          FULL_WIDTH_TOL, HYBRID_DEPTH)
     lives = [timed("live", phase_live, dev, ARCH),
-             timed("live ssm", phase_live, dev, SSM_ARCH)]
+             timed("live ssm", phase_live, dev, SSM_ARCH),
+             timed("live hybrid", phase_live, dev, HYBRID_ARCH)]
     repeat = timed("k4 f32 repeat", fa_f32_repeat, dev)
+    # each kernel's launches over its main paths' runs: the placement
+    # stream's and every live serve's (counts zeroed before each)
     launches = dict(serve["launches"])
     replayed = {}
     for live in lives:
-        launches.update(live["launches"])
+        for name, n in live["launches"].items():
+            launches[name] = launches.get(name, 0) + n
         for name, n in live["graph_replayed"].items():
             replayed[name] = replayed.get(name, 0) + n
     for row in rows:
@@ -293,7 +336,7 @@ def main() -> int:
         row["graph_replayed"] = replayed.get(row["name"], 0)
         if row["name"] == "flash_attention":
             row.update(repeat)
-        if row["launches"] <= 0:
+        if row["launches"] + row["graph_replayed"] <= 0:
             fail(f"{row['name']} was never launched on its main path")
     log(f"build seconds: {json.dumps(build)}")
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -761,22 +804,15 @@ def phase_kernels(ctx, dev) -> list[dict]:
                                     for dt in (f64, f32)),
         shape=f"N={N} F=2 T={T} I={I} L={L} f64"))
 
-    # ---- K3: surplus prefix in float64 (exact fold), RG-LRU shape in
-    # float32 (chunked scan)
+    # ---- K3: surplus prefix in float64 (exact fold); RG-LRU shapes in
+    # float32 (chunked scan): (2, 4096, 1024), and Griffin's at its real
+    # width (d_rnn 4096), its serving prefill (1, 32, 4096) and a
+    # 4,096-token prompt (1, 4096, 4096)
     g = torch.Generator(device="cpu").manual_seed(0)
-    xs = torch.randn((2, 4096, 1024), generator=g).to(dev)
-    a = torch.rand((2, 4096, 1024), generator=g).mul_(0.9).add_(0.1).to(dev)
-    if scan_regime(xs, a) != "chunked":
-        fail("K3 float32 gated does not take the chunked scan")
-    y, st = linear_scan_bsd(xs, a)
-    yp, sp = linear_scan_plain(xs, a)
-    err32 = max(max_err(y, yp), max_err(st, sp))
-    if err32 > 5e-5:
-        fail(f"K3 float32 differs by {err32}")
-    ms32 = cuda_ms(lambda: linear_scan_bsd(xs, a), 10)
-    graph32 = graph_ms(lambda: linear_scan_bsd(xs, a), 10)
-    rglru_bound = bound(4 * (3 * xs.numel() + st.numel()), 2 * xs.numel(),
-                        "float32")[0]
+    rglru = {tag: rglru_case(shape, dev, g)
+             for tag, shape in (("rglru_f32", (2, 4096, 1024)),
+                                ("griffin_s32", (1, 32, 4096)),
+                                ("griffin_s4096", (1, 4096, 4096)))}
     delta = torch.as_tensor(
         np.concatenate([[1.3e-3], np.random.default_rng(0).normal(
             0.0, 2e-5, N)]), device=dev)[None, :, None].contiguous()
@@ -802,9 +838,10 @@ def phase_kernels(ctx, dev) -> list[dict]:
         library_max_ulps=max_ulps(lib, got.view(-1)),
         chain_floor_ms=chain_floor_ms(N + 1, dev),
         shape=f"B=1 S={N + 1} D=1 f64 (surplus prefix); rglru: B=2 S=4096 "
-              f"D=1024 f32 gated",
-        rglru_f32_ms=ms32, rglru_f32_graph_ms=graph32,
-        rglru_f32_bound_ms=rglru_bound, rglru_f32_max_abs_err=err32,
+              f"D=1024 f32 gated; griffin_s32 / griffin_s4096: B=1 S=32 / "
+              f"4096 D=4096 f32 gated (recurrentgemma-9b's RG-LRU)",
+        **{f"{tag}_{k}": v for tag, c in rglru.items()
+           for k, v in c.items()},
         limit="exact fold: the S-step chain of dependent float64 adds; "
               "chunked scan: bytes"))
 
@@ -937,6 +974,37 @@ def phase_kernels(ctx, dev) -> list[dict]:
     return rows
 
 
+def rglru_case(shape, dev, gen) -> dict:
+    """K3's chunked float32 regime at one RG-LRU shape against its plain
+    version (within 5e-5): the eager call's time (``ms``, as the row's
+    ``rglru_f32_ms`` has been since it was added), the device time from a
+    CUDA graph (``graph_ms``), the plain version's time and the byte
+    bound."""
+    import torch
+
+    from repro_torch.kernels.linear_scan.kernel import (
+        linear_scan_bsd,
+        linear_scan_plain,
+        scan_regime,
+    )
+
+    xs = torch.randn(shape, generator=gen).to(dev)
+    a = torch.rand(shape, generator=gen).mul_(0.9).add_(0.1).to(dev)
+    if scan_regime(xs, a) != "chunked":
+        fail(f"K3 float32 gated at {shape} does not take the chunked scan")
+    y, st = linear_scan_bsd(xs, a)
+    yp, sp = linear_scan_plain(xs, a)
+    err = max(max_err(y, yp), max_err(st, sp))
+    if err > 5e-5:
+        fail(f"K3 float32 at {shape} differs from its plain version by {err}")
+    kernel = lambda: linear_scan_bsd(xs, a)  # noqa: E731
+    b_ms, b_by = bound(4 * (3 * xs.numel() + st.numel()), 2 * xs.numel(),
+                       "float32")
+    return {"ms": cuda_ms(kernel, 20), "graph_ms": graph_ms(kernel, 20),
+            "plain_ms": cuda_ms(lambda: linear_scan_plain(xs, a), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
 # ------------------------------------------------------- phase 2, attention
 def attn_inputs(shape, dtype, dev, seed):
     import numpy as np
@@ -950,8 +1018,9 @@ def attn_inputs(shape, dtype, dev, seed):
     return q, k, v
 
 
-def fa_case(shape, dtype, dev, causal, window, reps):
-    """K4 vs its plain version (and SDPA's time) at one shape."""
+def fa_case(shape, dtype, dev, causal, window, reps, ref=False):
+    """K4 vs its plain version (and SDPA's time) at one shape; with ``ref``
+    also vs the literal oracle ``attention_ref`` (in the model's layout)."""
     import torch
     import torch.nn.functional as F
 
@@ -960,6 +1029,7 @@ def fa_case(shape, dtype, dev, causal, window, reps):
         flash_attention_bhsd,
         flash_attention_plain,
     )
+    from repro_torch.kernels.flash_attention.ref import attention_ref
 
     q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + window)
     B, H, Hkv, Sq, Skv, D = shape
@@ -972,6 +1042,14 @@ def fa_case(shape, dtype, dev, causal, window, reps):
     if err > ATTN_TOL[name]:
         fail(f"K4 {shape} {name} causal={causal} window={window} differs "
              f"from its plain version by {err}")
+    ref_err = None
+    if ref:
+        oracle = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), **kw)
+        ref_err = max_err(got, oracle.transpose(1, 2))
+        del oracle
+        if ref_err > ATTN_TOL[name]:
+            fail(f"K4 {shape} {name} causal={causal} window={window} differs "
+                 f"from attention_ref by {ref_err}")
     mask = _mask(Sq, Skv, causal, window, dev)
     if window:
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -986,7 +1064,7 @@ def fa_case(shape, dtype, dev, causal, window, reps):
         ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
         plain_ms=graph_ms(lambda: flash_attention_plain(q, k, v, **kw),
                           max(reps // 10, 2)),
-        library_ms=graph_ms(sdpa, reps), err=err,
+        library_ms=graph_ms(sdpa, reps), err=err, ref_err=ref_err,
         nbytes=esz * (2 * q.numel() + k.numel() + v.numel()),
         ops=4.0 * B * H * pairs * D, dtype=name)
 
@@ -1088,8 +1166,10 @@ def fd_faults(q, k, v, lens, got, nsplit, chunk) -> dict:
     return out
 
 
-def fd_case(shape, dtype, dev, lengths, reps):
-    """K5 vs its plain version (and SDPA's time) at one shape."""
+def fd_case(shape, dtype, dev, lengths, reps, ref=False):
+    """K5 vs its plain version (and SDPA's time) at one shape; with ``ref``
+    also vs the literal oracle ``decode_attention_ref`` (in the model's
+    layout)."""
     import torch
     import torch.nn.functional as F
 
@@ -1099,6 +1179,7 @@ def fd_case(shape, dtype, dev, lengths, reps):
         decode_splits,
         sm_count,
     )
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + 1)
     B, H, Hkv, _, S, D = shape
@@ -1111,6 +1192,14 @@ def fd_case(shape, dtype, dev, lengths, reps):
     if err > ATTN_TOL[name] or (name == "bfloat16" and rel > DEC_ROW_TOL):
         fail(f"K5 {shape} {name} lengths={lengths} differs from its plain "
              f"version by {err} (row error {rel})")
+    ref_err = None
+    if ref:
+        oracle = decode_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                      lens)
+        ref_err = max_err(got, oracle.transpose(1, 2))
+        if ref_err > ATTN_TOL[name]:
+            fail(f"K5 {shape} {name} lengths={lengths} differs from "
+                 f"decode_attention_ref by {ref_err}")
     valid = torch.arange(S, device=dev)[None, :] < lens.long()[:, None]
     mask = valid[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1126,7 +1215,7 @@ def fd_case(shape, dtype, dev, lengths, reps):
         ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
         plain_ms=graph_ms(lambda: decode_attention_plain(q, k, v, lens),
                           max(reps // 10, 2)),
-        library_ms=graph_ms(sdpa, reps), err=err,
+        library_ms=graph_ms(sdpa, reps), err=err, ref_err=ref_err,
         nbytes=esz * (2 * q.numel() + 2 * live * Hkv * D) + 4 * B,
         ops=4.0 * H * live * D, dtype=name)
 
@@ -1148,12 +1237,31 @@ def phase_attention(dev) -> list[dict]:
     extra["eager_ms"] = fa["eager_ms"]
     for tag, c in (("s2048", fab), ("s2048_w256", faw)):
         extra[f"{tag}_bound_ms"] = bound(c["nbytes"], c["ops"], c["dtype"])[0]
+    # recurrentgemma-9b's local attention (head_dim 256, MQA, window 2048):
+    # its serving prefill, and a 4,096-token prompt past the window
+    g32 = (1, 16, 1, PROMPT_LEN, PROMPT_LEN, 256)
+    g4k = (1, 16, 1, 4096, 4096, 256)
+    griffin = {"griffin_s32": fa_case(g32, bf16, dev, True, WINDOW, 200,
+                                      ref=True),
+               "griffin_s4096": fa_case(g4k, bf16, dev, True, WINDOW, 10,
+                                        ref=True),
+               "griffin_s4096_f32": fa_case(g4k, f32, dev, True, WINDOW, 5,
+                                            ref=True)}
+    for tag, c in griffin.items():
+        extra.update({f"{tag}_{key}": c[key] for key in
+                      ("ms", "eager_ms", "plain_ms", "library_ms", "err",
+                       "ref_err")})
+        extra[f"{tag}_bound_ms"], extra[f"{tag}_bound_by"] = bound(
+            c["nbytes"], c["ops"], c["dtype"])
     rows = [row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:98", fa["ms"],
                 fa["plain_ms"], fa["err"], fa["nbytes"], fa["ops"], "bfloat16",
                 library_ms=fa["library_ms"],
                 shape="q (1, 32, 32, 64) k/v (1, 8, 32, 64) bf16 causal; "
-                      "s2048: q (1, 32, 2048, 64) k/v (1, 8, 2048, 64)",
+                      "s2048: q (1, 32, 2048, 64) k/v (1, 8, 2048, 64); "
+                      "griffin_s32 / griffin_s4096: q (1, 16, 32 / 4096, "
+                      "256) k/v (1, 1, 32 / 4096, 256) causal, window 2048 "
+                      "(recurrentgemma-9b), ref_err against attention_ref",
                 **extra)]
     # (B, H, Hkv, 1, S, D): a decode step of the serving executor, whose
     # lengths run past its 32-slot cache (pos + 1 >= 33)
@@ -1176,6 +1284,25 @@ def phase_attention(dev) -> list[dict]:
     extra["eager_ms"] = fd["eager_ms"]
     extra["b4_s4096_bound_ms"] = bound(fdb["nbytes"], fdb["ops"],
                                        fdb["dtype"])[0]
+    # recurrentgemma-9b's decode (head_dim 256, MQA): the serving ring of
+    # 32 slots (full after the first step), and a 2,048-slot ring (the
+    # window), full
+    g32 = (1, 16, 1, 1, PROMPT_LEN, 256)
+    g2k = (1, 16, 1, 1, WINDOW, 256)
+    griffin = {"griffin_s32": fd_case(g32, bf16, dev, [PROMPT_LEN], 200,
+                                      ref=True),
+               "griffin_s2048": fd_case(g2k, bf16, dev, [WINDOW], 50,
+                                        ref=True),
+               "griffin_s2048_f32": fd_case(g2k, f32, dev, [WINDOW], 50,
+                                            ref=True)}
+    for tag, c in griffin.items():
+        extra.update({f"{tag}_{key}": c[key] for key in
+                      ("ms", "eager_ms", "plain_ms", "library_ms", "err",
+                       "ref_err", "nsplit", "chunk", "row_err")})
+        extra[f"{tag}_bound_ms"], extra[f"{tag}_bound_by"] = bound(
+            c["nbytes"], c["ops"], c["dtype"])
+        if c["faults"]:
+            extra[f"{tag}_fault_row_err"] = c["faults"]
     rows.append(row("decode_attention",
                     "src/repro_torch/csrc/decode_attention.cu",
                     "src/repro/kernels/decode_attention/kernel.py:75",
@@ -1183,7 +1310,10 @@ def phase_attention(dev) -> list[dict]:
                     fd["ops"], "bfloat16", library_ms=fd["library_ms"],
                     shape="q (1, 32, 1, 64) k/v (1, 8, 32, 64) bf16 length "
                           "33; b4_s4096: k/v (4, 8, 4096, 64) lengths "
-                          "4103/1000/3001/17", **extra))
+                          "4103/1000/3001/17; griffin_s32 / griffin_s2048: q "
+                          "(1, 16, 1, 256) k/v (1, 1, 32 / 2048, 256) full "
+                          "(recurrentgemma-9b), ref_err against "
+                          "decode_attention_ref", **extra))
     return rows
 
 
@@ -1427,7 +1557,9 @@ def phase_ssd(dev) -> list[dict]:
     extra.update({f"s300_f32_{k}": cases["s300_f32"][k]
                   for k in ("ref_err", "ref_gap", "ref_limit")})
     extra["eager_ms"] = path["eager_ms"]
-    extra["route"] = path["route"]
+    # the serving prefill's route ("single" or "chunked"); the row's own
+    # "route" stays the contract's "cuda"
+    extra["ssd_route"] = path["route"]
     return [row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan/kernel.py:87", path["ms"],
               path["plain_ms"], path["err"], path["nbytes"], path["ops"],
@@ -1446,17 +1578,26 @@ def phase_ssd(dev) -> list[dict]:
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_model(dev, arch, long_prompt=0) -> None:
+def phase_model(dev, arch, long_prompt=0, long_tol=FULL_WIDTH_TOL,
+                depth=0) -> None:
     """``arch`` at full width: card vs CPU logits and caches in float32 over
     a (1, 32) prefill and 8 teacher-forced decode steps (and, when
-    ``long_prompt`` is set, a prefill of that many tokens), then the
-    CUDA-graph decode step vs the eager one in bf16."""
+    ``long_prompt`` is set, a prefill of that many tokens, within
+    ``long_tol``), at ``depth`` layers when it is given (else the config's);
+    then in bf16 at the config's full depth, as an executor holds and serves
+    it, the decode step replayed from its CUDA graph and the prefill
+    replayed from its own, each against the eager one (bit-equal), with
+    their times."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.modeling.registry import build_model
-    from repro_torch.serving.engine import DecodeGraph, make_compiled_steps
+    from repro_torch.serving.engine import (
+        DecodeGraph,
+        PrefillGraph,
+        make_compiled_steps,
+    )
 
     cfg = get_config(arch)
     rng = np.random.default_rng(0)
@@ -1466,13 +1607,15 @@ def phase_model(dev, arch, long_prompt=0) -> None:
 
     t0 = time.perf_counter()
     cfg32 = cfg.with_updates(dtype="float32")
+    if depth:
+        cfg32 = cfg32.with_updates(n_layers=depth)
     model = build_model(cfg32)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model.init(gen, device=dev)
     cpu_params = {k: v.cpu() for k, v in params.items()}
     n_params = sum(v.numel() for v in params.values())
-    runs = {}
+    runs, long_s = {}, {}
     for where, p in (("cuda", params), ("cpu", cpu_params)):
         d = dev if where == "cuda" else torch.device("cpu")
         logits, cache = model.prefill(
@@ -1485,9 +1628,11 @@ def phase_model(dev, arch, long_prompt=0) -> None:
             out.append(logits.cpu())
         long_run = None
         if long_prompt:
+            tl = time.perf_counter()
             logits, lc = model.prefill(
                 p, {"tokens": torch.as_tensor(longp, device=d)})
             long_run = (logits.cpu(), {k: v.cpu() for k, v in lc.items()})
+            long_s[where] = time.perf_counter() - tl
         runs[where] = (out, {k: v.cpu() for k, v in cache.items()}, long_run)
     keys = [k for k in runs["cpu"][1] if k != "pos"]
     errs = []
@@ -1500,10 +1645,11 @@ def phase_model(dev, arch, long_prompt=0) -> None:
     if int(runs["cuda"][1]["pos"]) != PROMPT_LEN + DECODE_STEPS:
         fail("the decode position did not advance once per step")
     scale = max(float(runs["cpu"][0][0].abs().max()), 1.0)
-    log(f"[model] {arch} full width, {n_params:,} parameters, float32: card "
-        f"vs CPU max abs logit error per step {json.dumps(errs)} (logits up "
-        f"to {scale:.2f}), cache ({', '.join(keys)}) error {cache_err:.3g}, "
-        f"tolerance {FULL_WIDTH_TOL} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[model] {arch} full width, {cfg32.n_layers} layers, {n_params:,} "
+        f"parameters, float32: card vs CPU max abs logit error per step "
+        f"{json.dumps(errs)} (logits up to {scale:.2f}), cache "
+        f"({', '.join(keys)}) error {cache_err:.3g}, tolerance "
+        f"{FULL_WIDTH_TOL} ({time.perf_counter() - t0:.1f} s)")
     if max(errs) > FULL_WIDTH_TOL or cache_err > FULL_WIDTH_TOL:
         fail(f"{arch} full-width card logits or cache differ from the CPU's "
              f"by {max(errs)} / {cache_err}")
@@ -1514,18 +1660,23 @@ def phase_model(dev, arch, long_prompt=0) -> None:
         log(f"[model] {arch} {long_prompt}-token prefill, float32: card vs "
             f"CPU max abs logit error {long_err:.3g} (logits up to "
             f"{float(lb.abs().max()):.2f}), cache error {long_cache:.3g}, "
-            f"tolerance {SSM_LONG_TOL}")
-        if not torch.isfinite(la).all() or long_err > SSM_LONG_TOL \
-                or long_cache > SSM_LONG_TOL:
+            f"tolerance {long_tol}; the prefill took {long_s['cuda']:.2f} s "
+            f"on the card and {long_s['cpu']:.2f} s on the CPU")
+        if not torch.isfinite(la).all() or long_err > long_tol \
+                or long_cache > long_tol:
             fail(f"{arch} {long_prompt}-token prefill on the card differs "
                  f"from the CPU's by {long_err} / {long_cache}")
     del params, cpu_params, runs
     torch.cuda.empty_cache()
 
-    # bf16, as an executor holds and serves it
+    # bf16 at full depth, as an executor holds and serves it
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, params, prefill_fn, decode_fn = make_compiled_steps(
         cfg, seed=1, device=dev)
+    n_params = sum(v.numel() for v in params.values())
+    weight_gib = sum(v.numel() * v.element_size()
+                     for v in params.values()) / 2**30
     toks = torch.as_tensor(prompt, device=dev)
     tok = torch.zeros(1, dtype=torch.int32, device=dev)
     _, cache = prefill_fn(params, {"tokens": toks})
@@ -1550,17 +1701,41 @@ def phase_model(dev, arch, long_prompt=0) -> None:
     equal &= all(torch.equal(graph.cache[k], eager[k]) for k in eager)
     if not equal:
         fail(f"{arch} graph decode differs from the eager step: {diffs}")
+    # the prefill graph, for the served prompt and for a second prompt
+    # copied into its tokens: logits and every cache tensor bit-equal
+    t0 = time.perf_counter()
+    pgraph = PrefillGraph(prefill_fn, params, toks)
+    torch.cuda.synchronize()
+    pcapture_s = time.perf_counter() - t0
+    other = torch.as_tensor(rng.integers(0, cfg.vocab, size=prompt.shape),
+                            dtype=torch.int32, device=dev)
+    p_equal = True
+    for tokens in (toks, other):
+        pgraph.tokens.copy_(tokens)
+        gl, gc = pgraph.run()
+        el, ec = prefill_fn(params, {"tokens": tokens})
+        p_equal &= torch.equal(gl, el) and set(gc) == set(ec) and all(
+            torch.equal(gc[k], ec[k]) for k in ec)
+    if not p_equal:
+        fail(f"{arch} graph prefill differs from the eager prefill")
+    pgraph.tokens.copy_(toks)
     eager_ms = cuda_ms(lambda: decode_fn(params, eager, {"token": tok}), 20)
     step_ms = cuda_ms(graph.step, 50)
     prefill_ms = cuda_ms(lambda: prefill_fn(params, {"tokens": toks}), 20)
+    prefill_graph_ms = cuda_ms(pgraph.run, 20)
     mem = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[model] {arch} bf16 serving weights: set-up {build_s:.2f} s, graph "
-        f"capture {capture_s:.2f} s (kernels per replay "
-        f"{json.dumps(graph.launches_per_replay)}); graph decode bit-equal "
-        f"to eager over {DECODE_STEPS} steps ({equal}); prefill "
-        f"{prefill_ms:.3f} ms, decode step {step_ms:.3f} ms from the graph, "
+    log(f"[model] {arch} bf16 serving weights, {cfg.n_layers} layers, "
+        f"{n_params:,} parameters ({weight_gib:.2f} GiB): set-up "
+        f"{build_s:.2f} s, decode graph capture {capture_s:.2f} s (kernels "
+        f"per replay {json.dumps(graph.launches_per_replay)}), prefill graph "
+        f"capture {pcapture_s:.2f} s (kernels per replay "
+        f"{json.dumps(pgraph.launches_per_replay)}); graph decode bit-equal "
+        f"to eager over {DECODE_STEPS} steps ({equal}); graph prefill "
+        f"bit-equal to eager on 2 prompts ({p_equal}); prefill "
+        f"{prefill_ms:.3f} ms eager, {prefill_graph_ms:.3f} ms from the "
+        f"graph; decode step {step_ms:.3f} ms from the graph, "
         f"{eager_ms:.3f} ms eager; peak allocated {mem:.1f} GiB")
-    del params, graph, cache, c2, eager
+    del params, graph, pgraph, cache, c2, eager
     torch.cuda.empty_cache()
 
 
@@ -1587,9 +1762,9 @@ def phase_live(dev, arch) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    specs = [SliceSpec("slice2", 2), SliceSpec("slice4", 4),
-             SliceSpec("slice8", 8)]
+    specs = [SliceSpec(f"slice{c}", c) for c in LIVE_SLICES[arch]]
     cat = calibrate_catalog(cfg, specs, n_tasks=8, n_cold=1, device=dev)
+    calib_peak = torch.cuda.max_memory_allocated()
     calib_s = time.perf_counter() - t0
     log(f"[live] calibrated {len(specs)} slices of {arch} in {calib_s:.1f} "
         f"s: cold start {cat.start_cold.mean:.1f} +- "
@@ -1612,38 +1787,62 @@ def phase_live(dev, arch) -> dict:
     hist = {}
     for target in res.records.targets:
         hist[target] = hist.get(target, 0) + 1
+    # the edge FIFO's waits apart from the cloud dispatches' waits at the
+    # pool's resident cap (which the pool counts itself)
+    wait = np.asarray(res.records.queue_wait_ms)
+    at_edge = np.isin(np.asarray(res.records.targets), list(pool.edges))
+    edge_waits = wait[at_edge & (wait > 0)]
     log(f"[live] {arch}: served {res.n} tasks in {serve_s:.1f} s: avg actual "
         f"latency {res.avg_actual_latency_ms:.2f} ms, p95 "
         f"{res.p95_actual_latency_ms:.2f} ms, latency_error_pct "
         f"{res.latency_error_pct:.2f}, cost {res.total_actual_cost:.6f}, "
         f"placements {json.dumps(dict(sorted(hist.items())))}, cold starts "
-        f"{int(np.count_nonzero(res.records.actual_cold))}, failed "
-        f"{res.n_failed}, peak resident executors {pool.peak_resident}, "
-        f"peak allocated {peak / 2**30:.1f} of {total / 2**30:.1f} GiB, "
-        f"launches {json.dumps(counts)}, replayed from decode graphs "
+        f"{int(np.count_nonzero(res.records.actual_cold))} (predicted "
+        f"{int(np.count_nonzero(res.records.predicted_cold))}), waited at "
+        f"the cap {pool.cap_waits} (mean "
+        f"{pool.cap_wait_ms / max(pool.cap_waits, 1):.2f} ms), waited in the "
+        f"edge FIFO {edge_waits.size} (mean "
+        f"{float(edge_waits.mean()) if edge_waits.size else 0.0:.2f} ms), "
+        f"failed "
+        f"{res.n_failed}, peak resident executors {pool.peak_resident} "
+        f"(cap {pool.max_resident}, {pool.reclaimed} reclaimed), "
+        f"peak allocated {peak / 2**30:.1f} of {total / 2**30:.1f} GiB "
+        f"({calib_peak / 2**30:.1f} GiB in the calibration), launches "
+        f"{json.dumps(counts)}, replayed from prefill and decode graphs "
         f"{json.dumps(replayed)}")
     if res.n != len(tasks) or res.n_failed or res.n_shed:
         fail(f"{arch} live serve: {res.n} of {len(tasks)} served, "
              f"{res.n_failed} failed, {res.n_shed} shed")
     if not np.isfinite(res.avg_actual_latency_ms):
         fail(f"{arch} live serve latency is not finite")
+    if pool.max_resident is not None \
+            and pool.peak_resident > pool.max_resident:
+        fail(f"{arch} live serve held {pool.peak_resident} models, over the "
+             f"pool's cap of {pool.max_resident}")
     if peak >= 0.9 * total:
         fail(f"{arch} live serve peak memory {peak / 2**30:.1f} GiB is over "
              "90% of the card")
     for k in LIVE_KERNELS[arch]:
-        if counts[k] <= 0:
+        if counts[k] + replayed.get(k, 0) <= 0:
             fail(f"{k} was not launched by the {arch} live serve")
-    if cfg.family == "ssm":
-        # K6 runs in every prefill, once per layer; a decode step holds no
-        # kernel of the port, so the graphs replay none
-        if counts["ssd_scan"] % cfg.n_layers or replayed:
-            fail(f"{arch}: ssd_scan launched {counts['ssd_scan']} times (not "
-                 f"{cfg.n_layers} per prefill) or decode graphs replayed "
-                 f"{replayed}")
-    elif set(replayed) != {"decode_attention"} \
-            or replayed["decode_attention"] % cfg.n_layers:
-        fail(f"decode graphs replayed {replayed}, not {cfg.n_layers} "
-             "decode_attention launches per step")
+    # what the graphs replay, per layer of the kind that runs each kernel:
+    # a prefill graph K4 (dense), K6 (SSM) or K3 and K4 (hybrid); a decode
+    # graph K5 (dense, hybrid) or no kernel of the port (SSM)
+    if cfg.family == "hybrid":
+        from repro_torch.modeling.griffin import layer_kinds
+
+        per = {"linear_scan": layer_kinds(cfg).count("rec"),
+               "flash_attention": layer_kinds(cfg).count("attn"),
+               "decode_attention": layer_kinds(cfg).count("attn")}
+    elif cfg.family == "ssm":
+        per = {"ssd_scan": cfg.n_layers}
+    else:
+        per = {"flash_attention": cfg.n_layers,
+               "decode_attention": cfg.n_layers}
+    if set(replayed) != set(per) or any(replayed[k] % n
+                                        for k, n in per.items()):
+        fail(f"{arch}: prefill and decode graphs replayed {replayed}, not "
+             f"whole multiples of {per}")
     return {"launches": {k: counts[k] for k in LIVE_KERNELS[arch]},
             "graph_replayed": replayed}
 

@@ -2,7 +2,9 @@
 numpy arrays, becomes the port's parameter dict, so that both packages
 compute the same model (the tests carry the JAX params over this way). It
 goes through ``build_model(cfg).param_specs()``, so it covers every family
-the port has: the dense ``LM`` and the SSM family's ``MambaLM``."""
+the port has: the dense ``LM``, the SSM family's ``MambaLM`` and the
+hybrid family's ``GriffinLM`` (its stacked ``rec_layers/`` and
+``attn_layers/`` parameters carry over by name)."""
 
 from __future__ import annotations
 

@@ -295,7 +295,10 @@ class LM(nn.Module):
 
         cache = {"k": fit(torch.stack([k for k, _ in kvs])),
                  "v": fit(torch.stack([v for _, v in kvs])),
-                 "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+                 # a fill on the device, not a copy from the host: the
+                 # prefill is captured in a CUDA graph on the card
+                 "pos": torch.full((), S, dtype=torch.int32,
+                                   device=x.device)}
         return logits, cache
 
     def decode_step(self, params, cache, batch):

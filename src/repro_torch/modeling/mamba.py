@@ -112,8 +112,10 @@ class MambaLM(LM):
         logits = logits_f32(x[:, -1, :], self._unembed(params).to(x.dtype))
         cache = {"state": torch.stack([st for st, _ in out]),
                  "conv": torch.stack([cv for _, cv in out]).to(self.dtype),
-                 "pos": torch.tensor(x.shape[1], dtype=torch.int32,
-                                     device=x.device)}
+                 # a fill on the device (the prefill is captured in a CUDA
+                 # graph on the card)
+                 "pos": torch.full((), x.shape[1], dtype=torch.int32,
+                                   device=x.device)}
         return logits, cache
 
     def decode_step(self, params, cache, batch):

@@ -42,21 +42,50 @@ def _fan_in(shape: tuple[int, ...]) -> int:
     return int(np.prod(shape[:-1]))
 
 
+# elements of a parameter drawn at a time (256 MB in float32): a large
+# parameter is drawn in slices along its first axis, each rounded to its
+# serving dtype as soon as it is drawn
+DRAW_ELEMS = 1 << 26
+
+
+def _fill(piece, spec: ParamSpec, scale: float, generator) -> torch.Tensor:
+    if spec.init == "embed":
+        return piece.normal_(0.0, 1.0, generator=generator).mul_(scale)
+    torch.nn.init.trunc_normal_(piece, 0.0, 1.0, -2.0, 2.0,
+                                generator=generator)
+    return piece.mul_(scale)
+
+
 def init_param(generator: torch.Generator, spec: ParamSpec,
-               dtype=torch.float32, device=None) -> torch.Tensor:
+               dtype=torch.float32, device=None,
+               out_dtype=None) -> torch.Tensor:
+    """One parameter drawn in ``dtype`` and returned in ``out_dtype``
+    (default ``dtype``). It is drawn in slices of whole rows of its first
+    axis, at most ``DRAW_ELEMS`` elements each (one slice for all but the
+    largest parameters), in order, each rounded into the result as soon as
+    it is drawn: no ``dtype`` copy of a large parameter is made (a
+    256,000 x 4,096 embedding would be 4.2 GB in float32). The slices
+    depend on the shape alone, so the values do not depend on
+    ``out_dtype``: a bf16 result is the float32 one rounded."""
+    out_dtype = out_dtype or dtype
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+        return torch.zeros(spec.shape, dtype=out_dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
-    out = torch.empty(spec.shape, dtype=dtype, device=device)
+        return torch.ones(spec.shape, dtype=out_dtype, device=device)
     if spec.init == "embed":
         scale = spec.scale if spec.scale is not None else 1.0
-        return out.normal_(0.0, 1.0, generator=generator).mul_(scale)
-    # truncated-normal fan-in init for projections
-    scale = spec.scale if spec.scale is not None \
-        else 1.0 / np.sqrt(_fan_in(spec.shape))
-    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return out.mul_(float(scale))
+    else:  # truncated-normal fan-in init for projections
+        scale = spec.scale if spec.scale is not None \
+            else 1.0 / np.sqrt(_fan_in(spec.shape))
+    scale = float(scale)
+    out = torch.empty(spec.shape, dtype=out_dtype, device=device)
+    rows = max(1, DRAW_ELEMS // int(np.prod(spec.shape[1:])))
+    for i in range(0, spec.shape[0], rows):
+        j = min(i + rows, spec.shape[0])
+        out[i:j].copy_(_fill(torch.empty((j - i, *spec.shape[1:]),
+                                         dtype=dtype, device=device),
+                             spec, scale, generator))
+    return out
 
 
 def init_params(generator: torch.Generator, specs: dict[str, ParamSpec],
@@ -64,14 +93,14 @@ def init_params(generator: torch.Generator, specs: dict[str, ParamSpec],
                 cast=None) -> dict[str, torch.Tensor]:
     """Every parameter of ``specs``, drawn in sorted-path order from
     ``generator`` (which must live on ``device``). ``cast(path, tensor)``,
-    when given, is applied to each parameter as soon as it is drawn, so a
-    caller that keeps lower-precision copies never holds all the float32
-    masters at once."""
-    out = {}
-    for path, spec in sorted(specs.items()):
-        t = init_param(generator, spec, dtype, device)
-        out[path] = cast(path, t) if cast is not None else t
-    return out
+    when given, says the dtype each parameter is kept in: the parameter is
+    drawn in ``dtype`` slice by slice and rounded to that dtype as it is
+    drawn (``init_param``), so a caller that keeps lower-precision copies
+    never holds a whole float32 master of one, let alone of all."""
+    probe = torch.empty((), dtype=dtype)
+    return {path: init_param(generator, spec, dtype, device,
+                             None if cast is None else cast(path, probe).dtype)
+            for path, spec in sorted(specs.items())}
 
 
 def param_count(specs: dict[str, ParamSpec]) -> int:

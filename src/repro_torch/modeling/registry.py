@@ -1,18 +1,18 @@
 """Model registry: ArchConfig.family -> model class.
 
-The dense and SSM (Mamba-2) families are ported; the others raise until
-their slice of the port (``ROADMAP.md``): the hybrid (Griffin), the MoE and
+The dense, SSM (Mamba-2) and hybrid (Griffin) families are ported; the
+others raise until their slice of the port (``ROADMAP.md``): the MoE and
 VLM families and the audio encoder.
 """
 
 from __future__ import annotations
 
+from repro_torch.modeling.griffin import GriffinLM
 from repro_torch.modeling.lm import LM
 from repro_torch.modeling.mamba import MambaLM
 
-FAMILIES = {"dense": LM, "ssm": MambaLM}
+FAMILIES = {"dense": LM, "ssm": MambaLM, "hybrid": GriffinLM}
 LATER = {
-    "hybrid": "the Griffin slice (RG-LRU on the linear-scan kernel)",
     "moe": "the MoE/VLM slice",
     "vlm": "the MoE/VLM slice",
     "audio": "the audio-encoder slice",

@@ -30,7 +30,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.modeling.layers import rms_norm
 from repro_torch.modeling.module import ParamSpec
-from repro_torch.modeling.rglru import causal_conv1d
+from repro_torch.modeling.rglru import causal_conv1d, softplus
 
 
 def ssd_dims(cfg):
@@ -126,11 +126,6 @@ def ssd_naive(x, dt, A, B, C):
     """The literal recurrence (float32), the oracle: ``ssd_ref`` on x in
     float32. Same shapes as ``ssd_chunked``; y is float32."""
     return ssd_ref(x.float(), dt, A, B, C)
-
-
-def softplus(x):
-    """``jax.nn.softplus``: ``logaddexp(x, 0)``, without torch's threshold."""
-    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def ssd_block_apply(cfg, p, x, state=None, conv_state=None, impl="xla"):

@@ -10,9 +10,10 @@ The port of ``repro.serving.engine``. ``make_prefill_step`` /
 ``modeling/mamba.py``).
 ``make_compiled_steps`` is the executor-facing entry: model, parameters drawn
 on the executor's device from its seed, and the two steps in one call. Where
-the reference compiles the steps with ``jax.jit``, an executor on the card
-captures its decode step in a CUDA graph (``DecodeGraph``) at its cold start
-and replays it for every warm decode; PyTorch runs the prefill eagerly.
+the reference compiles both steps with ``jax.jit``, an executor on the card
+captures them in CUDA graphs at its cold start, the prefill for its prompt
+shape (``PrefillGraph``) and the decode step (``DecodeGraph``), and replays
+them for every warm execution; on the CPU both run eagerly.
 
 ``generate`` runs greedy or temperature decoding for a batch of prompts.
 Greedy decoding takes the first maximal logit, as ``jnp.argmax`` does, so
@@ -34,7 +35,7 @@ from repro_torch.modeling.registry import build_model
 # one capture at a time in the process: a capture must not interleave with
 # another capture's allocations
 _CAPTURE_LOCK = threading.Lock()
-# kernel launches replayed from decode graphs, by kernel name
+# kernel launches replayed from prefill and decode graphs, by kernel name
 _REPLAYED: dict[str, int] = {}
 _REPLAYED_LOCK = threading.Lock()
 
@@ -60,6 +61,17 @@ def make_compiled_steps(model_cfg, seed: int = 0, device=None,
             make_decode_step(model))
 
 
+def serving_bytes(model_cfg) -> int:
+    """Bytes of the parameters an executor holds (``make_compiled_steps``:
+    each in the dtype its model's ``serving_cast`` keeps it in), from the
+    specs alone."""
+    model = build_model(model_cfg)
+    probe = torch.empty((), dtype=torch.float32)
+    return sum(int(np.prod(spec.shape))
+               * model.serving_cast(path, probe).element_size()
+               for path, spec in model.param_specs().items())
+
+
 def make_prefill_step(model, cache_len: int | None = None):
     def prefill_step(params, batch):
         return model.prefill(params, batch, cache_len=cache_len)
@@ -74,16 +86,77 @@ def make_decode_step(model):
     return decode_step
 
 
+def _capture(fn, device, reset=None):
+    """Capture ``fn()`` in a CUDA graph on ``device``: one warm-up call on a
+    side stream first (as graph capture wants), then ``reset()`` when given,
+    then the capture. Returns (graph, what the captured call returned, the
+    kernel launches the capture recorded for the calling thread alone, by
+    kernel name)."""
+    from repro_torch import kernels
+
+    with _CAPTURE_LOCK:
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):  # warm-up, as graph capture wants
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        if reset is not None:
+            reset()
+        graph = torch.cuda.CUDAGraph()
+        with kernels.recording() as captured, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+    return graph, out, captured
+
+
+def _replay(graph, launches: dict[str, int]) -> None:
+    graph.replay()
+    with _REPLAYED_LOCK:
+        for name, n in launches.items():
+            _REPLAYED[name] = _REPLAYED.get(name, 0) + n
+
+
+class PrefillGraph:
+    """A prefill captured in a CUDA graph for one prompt shape.
+
+    ``tokens`` (B, S) fixes the shape and the device. The graph reads the
+    prompt from its static ``tokens`` tensor and leaves the last token's
+    logits and a fresh cache (of any family, ``pos`` included) in static
+    tensors, which every ``run`` overwrites: copy the cache out (as
+    ``DecodeGraph.load`` does) before the next run. The prefill of every
+    family captures: no host copy, sync or host-side read of a device value
+    runs inside it (the cache's ``pos`` is a fill on the device).
+
+    Launches are tallied as ``DecodeGraph`` tallies them:
+    ``launches_per_replay`` (recorded for the capturing thread alone) is
+    added to ``replayed_launches`` at every run; the wrappers' own counts
+    see the warm-up and the capture only."""
+
+    def __init__(self, prefill_fn, params, tokens: torch.Tensor):
+        self.params = params  # the graph reads them: keep them alive
+        self.tokens = tokens.clone()
+        self.graph, (self.logits, self.cache), self.launches_per_replay = \
+            _capture(lambda: prefill_fn(params, {"tokens": self.tokens}),
+                     self.tokens.device)
+
+    def run(self) -> tuple[torch.Tensor, dict]:
+        """One prefill of ``self.tokens``; returns the (static) logits and
+        cache."""
+        _replay(self.graph, self.launches_per_replay)
+        return self.logits, self.cache
+
+
 class DecodeGraph:
     """A decode step captured in a CUDA graph over static buffers.
 
     ``cache`` (a prefill's output, of any family) fixes the shapes and the
     device. The graph reads the token from ``token`` and the position from
     the static cache's ``pos`` tensor; it updates the cache in place (the
-    dense family writes the token's K/V at the clamped slot, the SSM family
-    its states and conv windows), advances ``pos`` and leaves the logits in
-    ``logits``, all on the device. ``load`` copies a fresh cache in before a
-    run of ``step`` calls.
+    dense family writes the token's K/V at the clamped slot, the hybrid
+    family at its ring slot, the SSM and hybrid families their states and
+    conv windows), advances ``pos`` and leaves the logits in ``logits``, all
+    on the device. ``load`` copies a fresh cache in before a run of ``step``
+    calls.
 
     The wrappers' launch counts (``repro_torch.kernels``) count the kernels
     that the warm-up and the capture launch, and no replay. The graphs keep
@@ -92,28 +165,15 @@ class DecodeGraph:
     ``replayed_launches`` at every replay."""
 
     def __init__(self, decode_fn, params, cache: dict):
-        from repro_torch import kernels
-
         self.params = params  # the graph reads them: keep them alive
         self.cache = {k: v.clone() for k, v in cache.items()}
         # every family's cache entries but "pos" are (layers, batch, ...)
         ref = next(v for k, v in cache.items() if k != "pos")
         self.token = torch.zeros(ref.shape[1], dtype=torch.int32,
                                  device=ref.device)
-        with _CAPTURE_LOCK:
-            side = torch.cuda.Stream(device=self.token.device)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):  # warm-up, as graph capture wants
-                decode_fn(params, self.cache, {"token": self.token})
-            torch.cuda.current_stream().wait_stream(side)
-            self.load(cache)
-            self.graph = torch.cuda.CUDAGraph()
-            with kernels.recording() as captured, \
-                    torch.cuda.graph(self.graph,
-                                     capture_error_mode="thread_local"):
-                self.logits, _ = decode_fn(params, self.cache,
-                                           {"token": self.token})
-        self.launches_per_replay = captured
+        self.graph, (self.logits, _), self.launches_per_replay = _capture(
+            lambda: decode_fn(params, self.cache, {"token": self.token}),
+            ref.device, reset=lambda: self.load(cache))
 
     def load(self, cache: dict) -> None:
         for k, v in cache.items():
@@ -122,17 +182,14 @@ class DecodeGraph:
     def step(self) -> torch.Tensor:
         """One decode step of token ``self.token``; returns the (static)
         logits tensor."""
-        self.graph.replay()
-        with _REPLAYED_LOCK:
-            for name, n in self.launches_per_replay.items():
-                _REPLAYED[name] = _REPLAYED.get(name, 0) + n
+        _replay(self.graph, self.launches_per_replay)
         return self.logits
 
 
 def replayed_launches() -> dict[str, int]:
-    """Kernel launches run by ``DecodeGraph`` replays since the last
-    ``reset_replayed_launches``, by kernel name (not in the wrappers'
-    ``launches``)."""
+    """Kernel launches run by ``PrefillGraph`` and ``DecodeGraph`` replays
+    since the last ``reset_replayed_launches``, by kernel name (not in the
+    wrappers' ``launches``)."""
     with _REPLAYED_LOCK:
         return dict(_REPLAYED)
 

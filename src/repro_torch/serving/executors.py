@@ -7,16 +7,21 @@ for speed. This module runs REAL model executions on the executor's device:
 - **cold start** = the first dispatch to a slice pays the real set-up: the
   model's parameters drawn on the device from the executor's seed, one
   eager warm-up prefill and decode, and on the card the capture of the
-  decode step in a CUDA graph (``serving.engine.DecodeGraph``; the
-  reference's ``jax.jit`` compile). Later dispatches reuse the resident
-  weights and graph (**warm start**); ``evict`` drops both, so a
-  re-provisioned slice genuinely starts cold again;
+  prefill of the ``PROMPT`` shape and of the decode step in CUDA graphs
+  (``serving.engine.PrefillGraph``, ``DecodeGraph``; the reference's
+  ``jax.jit`` compiles). Later dispatches reuse the resident weights and
+  graphs (**warm start**); ``evict`` drops them, so a re-provisioned slice
+  genuinely starts cold again;
 - **throughput model**: a task of n_tokens runs ``ceil(n_tokens / (chips x
   tokens_per_step))`` genuine decode steps after one prefill of a (1, 32)
-  prompt — more chips, proportionally fewer sequential steps. On the card the
-  prefill runs the flash-attention kernel and every decode step replays the
-  graph, which runs the flash-decode kernel; measured latencies carry real
-  machine noise (the variance the paper's models absorb);
+  prompt — more chips, proportionally fewer sequential steps. On the card
+  the prefill and every decode step replay their graphs, which run the
+  model's kernels (the flash-attention kernel in a dense prefill and the
+  flash-decode kernel in its decode step; the SSD scan in a Mamba-2
+  prefill; the linear scan and the flash-attention kernel in a Griffin
+  prefill and the flash-decode kernel in its decode step); measured
+  latencies carry real machine noise (the variance the paper's models
+  absorb);
 - **two clocks**: *durations* are wall-clock measurements of real work
   (ended by a synchronize of the executor's own CUDA stream on the card);
   *container lifecycle* (busy/idle/expired) runs on the workload's virtual
@@ -36,7 +41,8 @@ spreads executors round-robin over the visible CUDA devices when there is
 more than one.
 
 Device policy: ``device=None`` means the CUDA card and raises without one;
-``device="cpu"`` runs everything on the CPU (decode steps eagerly).
+``device="cpu"`` runs everything on the CPU (prefill and decode steps
+eagerly).
 
 ``NetworkProfile`` (off by default) emulates the paper's WAN legs with real
 wall-clock waits: cloud dispatches pay an upload on the feed leg, edge
@@ -55,9 +61,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.serving.engine import DecodeGraph, make_compiled_steps
+from repro_torch.serving.engine import (
+    DecodeGraph,
+    PrefillGraph,
+    make_compiled_steps,
+    serving_bytes,
+)
 
 PROMPT = (1, 32)  # (batch, prompt length) of every execution's prefill
+MEMORY_SHARE = 0.9  # of a card's memory the resident models may take
 
 
 @dataclass(frozen=True)
@@ -97,7 +109,7 @@ class NetworkProfile:
 @dataclass
 class ExecutionRecord:
     feed_ms: float
-    start_ms: float   # weights+warm-up+capture on cold, lookup on warm
+    start_ms: float   # weights+warm-up+captures on cold, lookup on warm
     comp_ms: float
     store_ms: float
     cold: bool
@@ -138,12 +150,13 @@ class LiveExecutor:
         self.busy_until: float = 0.0
         self.last_completion: float = 0.0
         self.in_flight: bool = False  # leased by a concurrent dispatch
+        self.queued_ms: float = 0.0   # the current lease's wait at a cap
 
     def is_warm(self) -> bool:
         return self._compiled is not None
 
     def evict(self):
-        """Provider reclaimed the idle slice: drop the graph and weights."""
+        """Provider reclaimed the idle slice: drop the graphs and weights."""
         self._compiled = None
 
     def _on_device(self):
@@ -174,10 +187,11 @@ class LiveExecutor:
             tok = torch.zeros(PROMPT[0], dtype=torch.int32, device=self.device)
             logits, cache = prefill_fn(params, {"tokens": toks})
             logits, cache = decode_fn(params, cache, {"token": tok})
-            graph = DecodeGraph(decode_fn, params, cache) \
+            graphs = (PrefillGraph(prefill_fn, params, toks),
+                      DecodeGraph(decode_fn, params, cache)) \
                 if self.stream is not None else None
             self._sync()
-        self._compiled = (prefill_fn, decode_fn, params, model, graph, toks,
+        self._compiled = (prefill_fn, decode_fn, params, model, graphs, toks,
                           tok)
         return _wall_ms() - t0, True
 
@@ -186,7 +200,7 @@ class LiveExecutor:
         the decode steps (graph replays on the card)."""
         with self._lock:
             start_ms, cold = self._compile_locked()
-            prefill_fn, decode_fn, params, model, graph, toks, tok = \
+            prefill_fn, decode_fn, params, model, graphs, toks, tok = \
                 self._compiled
 
             t0 = _wall_ms()
@@ -202,12 +216,14 @@ class LiveExecutor:
                 n_tokens / (self.spec.chips * self.spec.tokens_per_step))), 1)
             t0 = _wall_ms()
             with self._on_device():
-                logits, cache = prefill_fn(params, {"tokens": toks})
-                if graph is not None:
-                    graph.load(cache)
+                if graphs is not None:
+                    prefill, decode = graphs
+                    logits, cache = prefill.run()
+                    decode.load(cache)
                     for _ in range(steps):
-                        logits = graph.step()
+                        logits = decode.step()
                 else:
+                    logits, cache = prefill_fn(params, {"tokens": toks})
                     for _ in range(steps):
                         logits, cache = decode_fn(params, cache,
                                                   {"token": tok})
@@ -262,9 +278,23 @@ class ExecutorPool:
     network: NetworkProfile | None = None
     devices: tuple = ()   # torch devices executors are round-robin placed on
     peak_resident: int = 0  # most executors holding a model at once
+    # the most models the pool's devices hold at once (``resident_capacity``;
+    # None on the CPU: no limit, as in the reference). At the cap a dispatch
+    # that finds no idle container of its config queues on the virtual
+    # clock: behind the one of its config that frees first, else until the
+    # container that frees first is reclaimed (``reclaimed`` counts them)
+    # and then cold-starts in its place. ``cap_waits`` counts the dispatches
+    # that waited there and ``cap_wait_ms`` sums their virtual waits (the
+    # edge FIFO's waits are not among them)
+    max_resident: int | None = None
+    reclaimed: int = 0
+    cap_waits: int = 0
+    cap_wait_ms: float = 0.0
     _seed: int = 0
     _dev_i: int = 0
-    _lock: threading.Lock = field(default_factory=threading.Lock)
+    # guards the bookkeeping; ``land`` and ``release`` notify a dispatch
+    # waiting at the cap for a container to stop executing
+    _lock: threading.Condition = field(default_factory=threading.Condition)
 
     # ------------------------------------- deprecated single-edge conveniences
     @property
@@ -318,42 +348,97 @@ class ExecutorPool:
         """Would a dispatch at virtual time ``now`` cold-start? (No mutation.)"""
         with self._lock:
             pool = self.containers.get(name, [])
-            return not any(
-                not c.in_flight and c.busy_until <= now
-                and now - c.last_completion <= self.t_idl_ms
-                and c.is_warm() for c in pool)
+            if any(not c.in_flight and c.busy_until <= now
+                   and now - c.last_completion <= self.t_idl_ms
+                   and c.is_warm() for c in pool):
+                return False
+            return self._queue_on_locked(name, now) is None
+
+    def _at_cap_locked(self) -> bool:
+        return self.max_resident is not None \
+            and self.resident() >= self.max_resident
+
+    def _queue_on_locked(self, name: str, now: float) -> LiveExecutor | None:
+        """At the resident cap: the busy warm container of ``name`` (not
+        executing) that frees first on the virtual clock, which a dispatch
+        that finds no idle one queues behind; None below the cap."""
+        if not self._at_cap_locked():
+            return None
+        busy = [c for c in self.containers.get(name, [])
+                if c.is_warm() and not c.in_flight and c.busy_until > now]
+        return min(busy, key=lambda c: c.busy_until, default=None)
 
     def lease(self, name: str, now: float) -> LiveExecutor:
         """Check out a container for a dispatch arriving at ``now``: sweep the
         idle-expired, reuse the most-recently-completed idle warm container
-        (AWS reuse order), else provision a fresh one. The lease marks it in
-        flight until ``land``."""
+        (AWS reuse order), else provision a fresh one. At the resident cap
+        the dispatch queues instead (``_queue_on_locked``, ``_reclaim_
+        locked``); the lease's virtual wait is left in the container's
+        ``queued_ms``. The lease marks it in flight until ``land``."""
         with self._lock:
             self._reap(name, now)
             pool = self.containers.setdefault(name, [])
             idle = [c for c in pool
                     if not c.in_flight and c.busy_until <= now and c.is_warm()]
+            wait = 0.0
             if idle:
                 c = max(idle, key=lambda c: c.last_completion)
+            elif (c := self._queue_on_locked(name, now)) is not None:
+                wait = c.busy_until - now
             else:
+                wait = self._reclaim_locked(now)
                 self._seed += 1
                 c = LiveExecutor(self.specs[name], self.model_cfg,
                                  seed=self._seed, device=self._next_device(),
                                  network=self.network)
-                pool.append(c)
+                self.containers.setdefault(name, []).append(c)
+            if wait > 0.0:
+                self.cap_waits += 1
+                self.cap_wait_ms += wait
+            c.queued_ms = wait
             c.in_flight = True
             return c
+
+    def _reclaim_locked(self, now: float) -> float:
+        """Memory pressure: while the pool holds ``max_resident`` models,
+        evict the warm cloud container, of any config and not executing,
+        that frees first on the virtual clock (an idle one at once), and drop
+        it from its pool: a provider makes room for a new container. When
+        every warm cloud container is executing, wait until one lands; when
+        there is none (the edge fleet alone fills the cap), raise: the pool
+        never provisions past the cap. Returns the virtual wait until the
+        last one evicted was free."""
+        wait = 0.0
+        while self._at_cap_locked():
+            warm = [(c, name) for name, pool in self.containers.items()
+                    for c in pool if c.is_warm()]
+            if not warm:
+                raise RuntimeError(
+                    f"the pool's devices hold {self.max_resident} serving "
+                    f"copies of the model and its {len(self.edges)} edge "
+                    f"executor(s) take them all: no cloud container fits")
+            warm = [cn for cn in warm if not cn[0].in_flight]
+            if not warm:
+                self._lock.wait()
+                continue
+            c, name = min(warm, key=lambda cn: cn[0].busy_until)
+            wait = max(wait, c.busy_until - now)
+            c.evict()
+            self.containers[name].remove(c)
+            self.reclaimed += 1
+        return wait
 
     def land(self, c: LiveExecutor, now: float, rec: ExecutionRecord) -> float:
         """Land a completion (possibly out of arrival order): apply the
         virtual lifecycle and release the lease. Returns the completion time
         on the virtual clock."""
-        completion = now + rec.start_ms + rec.comp_ms
+        completion = now + rec.queue_ms + rec.start_ms + rec.comp_ms
         with self._lock:
             c.busy_until = completion
             c.last_completion = completion
             c.in_flight = False
             self._note_resident_locked()
+            self._lock.notify_all()
         return completion
 
     def resident(self) -> int:
@@ -376,6 +461,7 @@ class ExecutorPool:
         flight forever."""
         with self._lock:
             c.in_flight = False
+            self._lock.notify_all()
 
     def execute_cloud(self, name: str, n_tokens: int, payload_bytes: float,
                       now: float) -> ExecutionRecord:
@@ -385,6 +471,7 @@ class ExecutorPool:
         except BaseException:
             self.release(c)
             raise
+        rec.queue_ms = c.queued_ms  # a wait at the resident cap, else 0
         self.land(c, now, rec)
         return rec
 
@@ -517,6 +604,19 @@ class ExecutorPool:
         return results
 
 
+def resident_capacity(model_cfg, devices) -> int | None:
+    """How many serving copies of the model ``devices`` hold at once: on
+    each CUDA device as many as fit in ``MEMORY_SHARE`` of its memory (the
+    rest left to activations, graph pools and the allocator's slack; three
+    of recurrentgemma-9b's 21.1 GiB on an 80 GB card); None (no cap) when
+    a device is the CPU."""
+    if any(d.type != "cuda" for d in devices):
+        return None
+    per = serving_bytes(model_cfg)
+    return sum(int(MEMORY_SHARE * torch.cuda.get_device_properties(d)
+                   .total_memory // per) for d in devices)
+
+
 def make_pool(model_cfg, specs: list[SliceSpec], t_idl_ms: float = 120_000.0,
               edge_spec: SliceSpec | None = None,
               edge_specs: list[SliceSpec] | None = None,
@@ -529,7 +629,8 @@ def make_pool(model_cfg, specs: list[SliceSpec], t_idl_ms: float = 120_000.0,
     ``devices`` (default: every visible CUDA device when ``device`` is None
     and there is more than one, else ``device`` alone) spreads executors
     round-robin so concurrent executions overlap; ``network`` switches on the
-    emulated WAN legs."""
+    emulated WAN legs. On CUDA devices the pool holds at most the models
+    they fit (``resident_capacity``), the edge fleet included."""
     if edge_specs is None:
         edge_specs = [edge_spec or SliceSpec(name="edge", chips=1, is_edge=True)]
     if devices is None:
@@ -546,6 +647,7 @@ def make_pool(model_cfg, specs: list[SliceSpec], t_idl_ms: float = 120_000.0,
         network=network,
         devices=tuple(resolve_device(d) for d in devices),
     )
+    pool.max_resident = resident_capacity(model_cfg, pool.devices)
     pool.edges = {s.name: LiveExecutor(s, model_cfg,
                                        device=pool._next_device(),
                                        network=network)

@@ -249,6 +249,10 @@ def calibrate_catalog(model_cfg, specs: list[SliceSpec], *,
         edge_sizes.append(float(t))
         edge_comps.append(erec.comp_ms)
         edge_stores.append(erec.store_ms)
+    # the measuring executors hold a model each: release them, so that the
+    # serving pool builds its own on a card that holds only a few at once
+    for ex in (*warm_ex.values(), edge_ex):
+        ex.evict()
 
     feats = np.array(feats)
     comps = np.array(comps)
@@ -369,6 +373,7 @@ class LiveBackend:
         return ExecutionOutcome(latency_ms=rec.total_ms,
                                 cost=self.pricing.cost(rec.comp_ms, chips),
                                 cold=cold, completion_ms=now + rec.total_ms,
+                                queue_wait_ms=rec.queue_ms,
                                 exec_ms=rec.start_ms + rec.comp_ms)
 
     # ---------------------------------------------------- concurrent driver
@@ -443,7 +448,17 @@ def make_live_runtime(cat: SliceCatalog, policy: Policy,
     next attempt); use the plain runtime for maximum-overlap serving.
 
     ``device`` is where the executors and the Decision Engine run
-    (``None``: the CUDA card)."""
+    (``None``: the CUDA card). On the card the pool holds at most the
+    models that fit (``executors.resident_capacity``, the edge fleet
+    included; no cap on the CPU, as in the reference): at the cap a cloud
+    dispatch that finds no idle container of its config queues on the
+    virtual clock, behind the one of its config that frees first, else
+    until the container that frees first is reclaimed
+    (``ExecutorPool.reclaimed``), and the wait is part of its latency
+    (``queue_wait_ms``). A card that holds only a few copies of a large
+    model needs it: the decisions are made from predictions, and while a
+    cold start is long against the arrival gaps the policy sends cold
+    dispatches that would each provision another container."""
     edge_specs = [SliceSpec(name, chips=EDGE_SPEC.chips,
                             tokens_per_step=EDGE_SPEC.tokens_per_step,
                             is_edge=True)

@@ -601,7 +601,8 @@ def test_lm_and_executor_on_card(cuda_device):
     (float32: K4/K5 vs their plain versions, cuBLAS vs CPU matmuls), the
     decode step replayed from its CUDA graph against the eager one (bf16,
     bit-equal), and a live executor's cold and warm starts. The wrappers
-    count the eager launches alone; the graph tallies its replays."""
+    count the eager launches alone; the graphs tally their replays (a warm
+    execution replays its prefill graph and its decode graph)."""
     from repro_torch.configs import smoke_config
     from repro_torch.serving.engine import (
         DecodeGraph,
@@ -650,19 +651,21 @@ def test_lm_and_executor_on_card(cuda_device):
     r2 = ex.execute(64, 16.0)
     assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == cfg.n_layers
-    assert counts["decode_attention"] == 0  # every decode step is a replay
-    # 64 / (2 x 4) steps
-    assert replayed_launches() == {"decode_attention": 8 * cfg.n_layers}
+    # the prefill and every decode step are replays
+    assert counts["flash_attention"] == counts["decode_attention"] == 0
+    # one prefill, 64 / (2 x 4) decode steps
+    assert replayed_launches() == {"flash_attention": cfg.n_layers,
+                                   "decode_attention": 8 * cfg.n_layers}
 
 
 @pytest.mark.cuda
 def test_live_serve_on_card(cuda_device):
     """Calibrate-then-serve on the card with a small LM: the sequential
     serve and the concurrent one (one dispatcher thread per target, cold
-    starts capturing decode graphs while other executors run). A capture
-    tallies only its own thread's launches, so every graph replays K5 alone,
-    whatever the other executors launched meanwhile."""
+    starts capturing prefill and decode graphs while other executors run).
+    A capture tallies only its own thread's launches, so the graphs replay
+    K4 (prefills) and K5 (decode steps) alone, whatever the other executors
+    launched meanwhile."""
     from repro_torch.configs import smoke_config
     from repro_torch.core.decision import MinLatencyPolicy
     from repro_torch.serving import (
@@ -700,7 +703,8 @@ def test_live_serve_on_card(cuda_device):
     assert res.n == 24 and res.n_failed == 0
     assert np.isfinite(res.avg_actual_latency_ms)
     replayed = replayed_launches()
-    assert set(replayed) == {"decode_attention"}
+    assert set(replayed) == {"flash_attention", "decode_attention"}
+    assert replayed["flash_attention"] % cfg.n_layers == 0
     assert replayed["decode_attention"] % cfg.n_layers == 0
 
 
@@ -817,7 +821,8 @@ def test_mamba_lm_and_executor_on_card(cuda_device):
     multi-chunk prefill and 4 decode steps; the decode step replayed from
     its CUDA graph against the eager one (bf16, bit-equal; the graph holds
     no kernel of the port, so it tallies no replayed launch); a live
-    executor's cold and warm starts, one K6 launch per layer per prefill."""
+    executor's cold and warm starts, a warm prefill replaying its graph's
+    K6 launch per layer."""
     from repro_torch.configs import smoke_config
     from repro_torch.serving.engine import (
         DecodeGraph,
@@ -865,9 +870,180 @@ def test_mamba_lm_and_executor_on_card(cuda_device):
                       device=cuda_device)
     r1 = ex.execute(64, 16.0)
     kernels.reset_launch_counts()
+    reset_replayed_launches()
     r2 = ex.execute(64, 16.0)
     assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
-    assert kernels.launch_counts()["ssd_scan"] == cfg.n_layers
+    assert kernels.launch_counts()["ssd_scan"] == 0
+    assert replayed_launches() == {"ssd_scan": cfg.n_layers}
+
+
+# ------------------------------------------- the prefill graph, Griffin
+# the kernels a prefill of each family launches, per layer of that kind
+PREFILL_KERNELS = {"llama3.2-1b": {"flash_attention": "layers"},
+                   "mamba2-780m": {"ssd_scan": "layers"},
+                   "recurrentgemma-9b": {"linear_scan": "rec",
+                                         "flash_attention": "attn"}}
+
+
+def _layers_of(cfg, kind):
+    from repro_torch.modeling.griffin import layer_kinds
+
+    return cfg.n_layers if kind == "layers" else layer_kinds(cfg).count(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(PREFILL_KERNELS))
+def test_prefill_graph_bit_equal_to_eager_on_card(cuda_device, arch):
+    """The prefill captured in a CUDA graph (``PrefillGraph``) against the
+    eager prefill, for each ported family at smoke width in bf16: logits
+    and every cache tensor bit-equal, for the captured prompt and for a
+    second prompt copied into the graph's tokens; its replays tallied
+    apart from the wrappers' counts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import (
+        PrefillGraph,
+        make_compiled_steps,
+        replayed_launches,
+        reset_replayed_launches,
+    )
+
+    cfg = smoke_config(arch).with_updates(dtype="bfloat16")
+    model, params, prefill_fn, _ = make_compiled_steps(
+        cfg, seed=0, device=cuda_device)
+    S = 24 if cfg.family != "hybrid" else cfg.attn_window + 8  # ring rolls
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab, (2, S), generator=gen,
+                             dtype=torch.int32).to(cuda_device)
+               for _ in range(2)]
+    graph = PrefillGraph(prefill_fn, params, prompts[0])
+    want = {k: _layers_of(cfg, kind)
+            for k, kind in PREFILL_KERNELS[arch].items()}
+    assert graph.launches_per_replay == want
+    kernels.reset_launch_counts()
+    reset_replayed_launches()
+    for tokens in prompts:
+        graph.tokens.copy_(tokens)
+        logits, cache = graph.run()
+        e_logits, e_cache = prefill_fn(params, {"tokens": tokens})
+        assert torch.equal(logits, e_logits)
+        assert set(cache) == set(e_cache)
+        for k in e_cache:
+            assert cache[k].dtype == e_cache[k].dtype, k
+            assert torch.equal(cache[k], e_cache[k]), k
+    assert replayed_launches() == {k: 2 * n for k, n in want.items()}
+    # the wrappers count the two eager prefills alone
+    counts = kernels.launch_counts()
+    assert {k: counts[k] for k in want} == {k: 2 * n for k, n in want.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_griffin_shapes_hold_to_the_refs_on_card(
+        cuda_device, rng, dtype):
+    """K4 windowed and K5 at Griffin's head_dim 256 with MQA (16 query
+    heads on one KV head) on the card, against their plain versions and the
+    literal oracles ``attention_ref`` / ``decode_attention_ref`` (in the
+    model's layout): a 640-token prefill under a 256-token window, and a
+    decode over a 384-slot ring, full and partly filled."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    tol = ATTN_TOL[dtype]
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 640, h, 256)),
+                               dtype=dtype).to(cuda_device)
+               for h in (16, 1, 1))
+    got = flash_attention(q, k, v, causal=True, window=256)
+    for want in (attention_ref(q, k, v, causal=True, window=256),
+                 flash_attention_plain_bshd(q, k, v, window=256)):
+        assert max_abs(got, want) <= tol
+    q = torch.as_tensor(rng.normal(size=(2, 1, 16, 256)),
+                        dtype=dtype).to(cuda_device)
+    kc, vc = (torch.as_tensor(rng.normal(size=(2, 384, 1, 256)),
+                              dtype=dtype).to(cuda_device) for _ in range(2))
+    lens = torch.tensor([384, 200], dtype=torch.int32, device=cuda_device)
+    got = decode_attention(q, kc, vc, lens)
+    assert max_abs(got, decode_attention_ref(q, kc, vc, lens)) <= tol
+
+
+def flash_attention_plain_bshd(q, k, v, window):
+    """K4's plain version on (B, S, H, D) tensors."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain,
+    )
+
+    return flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 window=window).transpose(1, 2)
+
+
+@pytest.mark.cuda
+def test_griffin_lm_and_executor_on_card(cuda_device):
+    """The smoke Griffin LM on the card against the same weights on the CPU
+    (float32: K3, K4 and K5 vs their plain versions, cuBLAS vs CPU
+    matmuls) over a prefill past the window and 8 decode steps that wrap
+    the ring; in bf16 the decode step replayed from its CUDA graph against
+    the eager one (bit-equal, K5 once per attention layer per step); a live
+    executor's cold and warm starts, a warm execution all replays."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.modeling.griffin import layer_kinds
+    from repro_torch.serving.engine import (
+        DecodeGraph,
+        make_compiled_steps,
+        replayed_launches,
+        reset_replayed_launches,
+    )
+    from repro_torch.serving.executors import LiveExecutor, SliceSpec
+
+    cfg = smoke_config("recurrentgemma-9b")
+    n_rec, n_attn = (layer_kinds(cfg).count(k) for k in ("rec", "attn"))
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        cfg, seed=0, device=cuda_device)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    S = cfg.attn_window + 12
+    toks = torch.arange(S, dtype=torch.int32)[None].repeat(2, 1) % cfg.vocab
+    kernels.reset_launch_counts()
+    lg, cg = model.prefill(params, {"tokens": toks.to(cuda_device)})
+    counts = kernels.launch_counts()
+    assert counts["linear_scan"] == n_rec
+    assert counts["flash_attention"] == n_attn
+    lc, cc = model.prefill(cpu, {"tokens": toks})
+    assert max_abs(lg, lc) < 1e-4
+    for step in range(8):
+        tok = torch.tensor([step, 3 * step], dtype=torch.int32)
+        lg, cg = model.decode_step(params, cg, {"token": tok.to(cuda_device)})
+        lc, cc = model.decode_step(cpu, cc, {"token": tok})
+        assert max_abs(lg, lc) < 1e-4
+    assert kernels.launch_counts()["decode_attention"] == 8 * n_attn
+    for key in ("state", "conv", "k", "v"):
+        assert max_abs(cg[key], cc[key]) < 1e-4, key
+    bf = cfg.with_updates(dtype="bfloat16")
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        bf, seed=1, device=cuda_device)
+    _, cache = prefill_fn(params, {"tokens": toks.to(cuda_device)})
+    graph = DecodeGraph(decode_fn, params, cache)
+    assert graph.launches_per_replay == {"decode_attention": n_attn}
+    graph.load(cache)
+    eager = {k: v.clone() for k, v in cache.items()}
+    for step in range(8):  # the ring wraps
+        graph.token.fill_(step)
+        got = graph.step().clone()
+        want, eager = decode_fn(params, eager, {"token": torch.full(
+            (2,), step, dtype=torch.int32, device=cuda_device)})
+        assert torch.equal(got, want)
+    assert all(torch.equal(graph.cache[k], eager[k]) for k in eager)
+    ex = LiveExecutor(SliceSpec("s2", 2, tokens_per_step=4), bf,
+                      device=cuda_device)
+    r1 = ex.execute(64, 16.0)
+    kernels.reset_launch_counts()
+    reset_replayed_launches()
+    r2 = ex.execute(64, 16.0)
+    assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
+    assert set(kernels.launch_counts().values()) == {0}
+    assert replayed_launches() == {"linear_scan": n_rec,
+                                   "flash_attention": n_attn,
+                                   "decode_attention": 8 * n_attn}
 
 
 # ---------------------------------------------------------------- K5, split-K

@@ -359,11 +359,22 @@ def test_converter_rejects_mismatched_params():
         lm_params_from_numpy(cfg, arrays)
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "olmoe-1b-7b",
-                                  "internvl2-26b", "hubert-xlarge"])
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "internvl2-26b",
+                                  "hubert-xlarge"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(smoke_config(name))
+
+
+def test_hybrid_family_builds_griffin():
+    """The hybrid family is ported: ``build_model`` returns a ``GriffinLM``
+    for recurrentgemma-9b (its parity with the reference is held in
+    ``tests/test_torch_griffin.py``)."""
+    from repro_torch.modeling.griffin import GriffinLM
+
+    assert isinstance(build_model(get_config("recurrentgemma-9b")), GriffinLM)
+    assert isinstance(build_model(smoke_config("recurrentgemma-9b")),
+                      GriffinLM)
 
 
 def test_lm_raises_for_unported_options():

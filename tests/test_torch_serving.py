@@ -3,12 +3,16 @@ the placement runtime, mirroring ``tests/test_serving_live.py`` on its
 ``TINY`` config with ``device="cpu"``.
 
 On the CPU an executor's cold start draws the weights and runs one eager
-warm-up prefill and decode (on the card it also captures the decode step in
-a CUDA graph); decode steps run eagerly. Imports torch, numpy and
+warm-up prefill and decode (on the card it also captures the prefill and
+the decode step in CUDA graphs); prefill and decode steps run eagerly. The
+dense family runs on ``TINY``, the SSM and hybrid families on their smoke
+configs. Imports torch, numpy and
 ``repro_torch`` only.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pytest
@@ -145,6 +149,106 @@ def test_pool_counts_resident_executors(tiny_cfg):
     assert pool.resident() == 1 and pool.peak_resident == 2
     assert all(ex.device == torch.device("cpu")
                for ex in pool.edges.values())
+
+
+def test_serving_bytes_and_resident_capacity():
+    """The bytes an executor holds, from the specs and the serving cast
+    (recurrentgemma-9b: 19.1 GB of bf16 and 3.5 GB of float32), and the
+    pool's cap: none on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import serving_bytes
+    from repro_torch.serving.executors import resident_capacity
+
+    cfg = get_config("recurrentgemma-9b")
+    f32 = 26 * (2 * 4096 * 4096 + 3 * 4096)  # gates, gate biases, lambda
+    norms = 26 * 2 * 4096 + 12 * 2 * 4096 + 4096
+    n = build_model(cfg).param_count()
+    assert serving_bytes(cfg) == 2 * (n - f32 - norms) + 4 * (f32 + norms)
+    assert 22.5e9 < serving_bytes(cfg) < 22.7e9
+    assert resident_capacity(cfg, (torch.device("cpu"),)) is None
+
+
+def test_pool_queues_at_its_resident_cap(tiny_cfg):
+    """At ``max_resident`` a dispatch that finds its config's container busy
+    queues behind it on the virtual clock (warm, the wait in its latency)
+    instead of provisioning another model; below the cap, or uncapped, the
+    pool provisions as the reference's does."""
+    capped = make_pool(tiny_cfg, [SliceSpec("s2", 2)], t_idl_ms=1e9,
+                       device=CPU)
+    assert capped.max_resident is None  # no cap on the CPU
+    capped.max_resident = 2  # as a card that holds two models
+    r1 = capped.execute_cloud("s2", 16, 1.0, now=0.0)
+    busy_until = r1.start_ms + r1.comp_ms
+    assert not capped.probe_cold("s2", now=1.0)
+    r2 = capped.execute_cloud("s2", 16, 1.0, now=1.0)
+    assert not r2.cold and r2.queue_ms == pytest.approx(busy_until - 1.0)
+    assert r2.total_ms >= r2.queue_ms
+    assert capped.peak_resident == 2 and capped.reclaimed == 0
+    assert capped.cap_waits == 1
+    assert capped.cap_wait_ms == pytest.approx(busy_until - 1.0)
+    assert len(capped.containers["s2"]) == 1
+    free = make_pool(tiny_cfg, [SliceSpec("s2", 2)], t_idl_ms=1e9,
+                     device=CPU)
+    free.execute_cloud("s2", 16, 1.0, now=0.0)
+    assert free.probe_cold("s2", now=1.0)
+    r2 = free.execute_cloud("s2", 16, 1.0, now=1.0)
+    assert r2.cold and r2.queue_ms == 0.0 and free.peak_resident == 3
+
+
+def test_pool_reclaims_past_its_resident_cap(tiny_cfg):
+    """With ``max_resident`` the pool never holds more models than the cap:
+    a provision past it evicts the container that frees first, of any
+    config (an idle one at once); without the cap it keeps them all."""
+    specs = [SliceSpec("s2", 2), SliceSpec("s4", 4)]
+    capped = make_pool(tiny_cfg, specs, t_idl_ms=1e9, device=CPU)
+    capped.max_resident = 2
+    free = make_pool(tiny_cfg, specs, t_idl_ms=1e9, device=CPU)
+    for pool in (capped, free):
+        pool.execute_cloud("s2", 16, 1.0, now=0.0)
+        pool.execute_cloud("s4", 16, 1.0, now=1e6)
+        pool.execute_cloud("s2", 16, 1.0, now=2e6)
+    assert capped.peak_resident == 2 and capped.reclaimed == 2
+    assert capped.cap_waits == 0  # the evicted containers were idle
+    assert [c.is_warm() for c in capped.containers["s2"]] == [True]
+    assert capped.containers["s4"] == []
+    assert free.peak_resident == 3 and free.reclaimed == 0
+
+
+def test_pool_at_its_cap_waits_for_an_executing_container(tiny_cfg):
+    """At ``max_resident`` with every warm container executing, a dispatch
+    of another config waits until one lands and then takes its place: the
+    pool never provisions past the cap. The wait is the landed container's
+    virtual completion less the arrival, counted in ``cap_waits``."""
+    pool = make_pool(tiny_cfg, [SliceSpec("s2", 2), SliceSpec("s4", 4)],
+                     t_idl_ms=1e9, edge_specs=[], device=CPU)
+    pool.max_resident = 1
+    c = pool.lease("s2", 0.0)
+    c._compiled = ("stub",)  # resident and executing
+    got = []
+    t = threading.Thread(target=lambda: got.append(pool.lease("s4", 10.0)))
+    t.start()
+    t.join(timeout=0.3)
+    assert t.is_alive() and pool.containers["s4"] == []
+    _landed(pool, c, arrival_ms=0.0, busy_ms=100.0)
+    t.join(timeout=10.0)
+    assert not t.is_alive() and len(got) == 1
+    assert got[0].queued_ms == pytest.approx(90.0) and got[0].in_flight
+    assert pool.containers == {"s2": [], "s4": got}
+    assert not c.is_warm() and pool.reclaimed == 1
+    assert pool.cap_waits == 1 and pool.cap_wait_ms == pytest.approx(90.0)
+    assert pool.peak_resident == 1
+
+
+def test_pool_refuses_a_cap_its_edge_fleet_fills(tiny_cfg):
+    """A card that holds no more serving copies than the edge fleet takes
+    has no room for a cloud container: the dispatch raises instead of
+    provisioning past the cap."""
+    pool = make_pool(tiny_cfg, [SliceSpec("s2", 2)], t_idl_ms=1e9,
+                     device=CPU)
+    pool.max_resident = 1
+    with pytest.raises(RuntimeError, match="no cloud container fits"):
+        pool.execute_cloud("s2", 16, 1.0, now=0.0)
+    assert pool.containers["s2"] == [] and pool.resident() == 1
 
 
 # ------------------------------------------- out-of-order completion landing
@@ -310,10 +414,64 @@ def test_mamba_live_calibrate_then_serve():
     assert rt.backend.pool.peak_resident >= 1
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m"])
+# ------------------------------------------ the hybrid family (Griffin)
+HYBRID = "recurrentgemma-9b"
+
+
+def test_griffin_executor_and_pool_on_cpu():
+    """A live executor and a pool of the smoke Griffin LM on the CPU: cold
+    then warm, the RG-LRU through K3's plain version and the local
+    attention through K4's and K5's (no launches), an eviction and the
+    resident count."""
+    cfg = smoke_config(HYBRID)
+    kernels.reset_launch_counts()
+    ex = LiveExecutor(SliceSpec("s2", 2, tokens_per_step=4), cfg, device=CPU)
+    r1 = ex.execute(64, 16.0)  # 8 decode steps: the 16-slot ring wraps
+    r2 = ex.execute(64, 16.0)
+    assert r1.cold and not r2.cold and r2.start_ms < r1.start_ms
+    assert set(kernels.launch_counts().values()) == {0}
+    ex.evict()
+    assert not ex.is_warm()
+    pool = make_pool(cfg, [SliceSpec("s2", 2)], t_idl_ms=1_000.0, device=CPU)
+    assert pool.resident() == pool.peak_resident == 1  # the edge
+    rec = pool.execute_cloud("s2", 16, 1.0, now=0.0)
+    assert rec.cold and pool.resident() == 2
+    assert not pool.probe_cold("s2", now=rec.start_ms + rec.comp_ms + 1.0)
+
+
+def test_griffin_live_calibrate_then_serve(monkeypatch):
+    """Calibrate, then serve the smoke Griffin LM live on the CPU. The
+    calibration releases every executor it measured with before it returns
+    (the serving pool builds its own)."""
+    cfg = smoke_config(HYBRID)
+    specs = [SliceSpec("s4", 4, tokens_per_step=4),
+             SliceSpec("s8", 8, tokens_per_step=4)]
+    evicted = []
+    evict = LiveExecutor.evict
+    monkeypatch.setattr(LiveExecutor, "evict", lambda self: (
+        evicted.append(self), evict(self))[1])
+    cat = calibrate_catalog(cfg, specs, n_tasks=6, n_cold=1, seed=0,
+                            device=CPU)
+    # the warm-up, one cold start per slice, one warm executor per slice
+    # and the edge executor
+    assert len(evicted) == 1 + 2 + 2 + 1
+    assert not any(ex.is_warm() for ex in evicted)
+    assert cat.start_cold.mean > cat.start_warm.mean
+    kernels.reset_launch_counts()
+    rt = make_live_runtime(cat, MinLatencyPolicy(c_max=0.01, alpha=0.05),
+                           t_idl_ms=30_000.0, device=CPU)
+    res = rt.serve(llm_workload(20, rate_per_s=40.0, seed=1,
+                                mean_tokens=128))
+    assert res.n == 20 and res.n_failed == 0 and res.n_shed == 0
+    assert np.isfinite(res.avg_actual_latency_ms)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert rt.backend.pool.peak_resident >= 1
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m", HYBRID])
 def test_serve_cli_on_cpu(arch, capsys):
     """The port's serve CLI with ``--device cpu`` serves the smoke
-    reduction of either ported family."""
+    reduction of every ported family."""
     from repro_torch.launch import serve as serve_cli
 
     rc = serve_cli.main(["--arch", arch, "--device", "cpu", "--n", "6",
