@@ -164,12 +164,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (1, 32, 32, 8, 64) causal, after the live serves in this process: every
    output must have the same bits (recorded in K4's row with each side's
    distance from a float64 softmax);
-7. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (K1-K6, walk and replay), and as the last line
+7. train (the training slice): K4b (``flash_attention_bwd``) against its
+   plain version at llama3.2-1b's training attention (q (2, 32, 2048, 64),
+   8 KV heads, causal, bf16) and recurrentgemma-9b's (q (1, 16, 4096,
+   256), one KV head, window 2048, bf16 and float32): float32 within 5e-5
+   of max(1, |grad|), bf16 each row within 2^-6 of its largest |grad|,
+   and three planted faults (``delta`` dropped, the window's edge off by
+   one, one GQA head left out of dK) must each break the bf16 limit; its
+   time, its plain version's, SDPA's forward + backward less its forward
+   (``library_ms``) and its bound (the recompute of S and four products).
+   Then one float32 training step of llama3.2-1b at full width and 2
+   layers on the card against the CPU (loss, global grad norm, every
+   gradient, the AdamW update); the slice, llama3.2-1b at full width and
+   depth trained 10 steps through ``train()`` in bf16 with float32 master
+   parameters and ``remat="full"`` at B=2, S=2048, counts zeroed just
+   before and read just after (K4 32 and K4b 16 launches a step, losses
+   finite; median step ms, tokens/s, peak memory, one step's device time
+   by kind of kernel); and on the ``examples/train_100m_torch.py``
+   configuration two runs from one seed (equal losses) and a run killed
+   at step 6 and restarted from its checkpoint (within rtol 1e-5 of the
+   uninterrupted run);
+8. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (K1-K6, K4b, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's ``launches`` are its wrapper's count over its main paths' runs
-(the placement stream and the live serves): the calls that launched it (or
+(the placement stream, the live serves and the training slice): the calls that launched it (or
 recorded it into a CUDA graph at a capture). The launches that prefill and
 decode graph replays run are counted apart, as ``graph_replayed``, from the
 graphs' own tally (``serving.engine.replayed_launches``).
@@ -262,6 +282,27 @@ LIVE_KERNELS = {ARCH: ("flash_attention", "decode_attention"),
                 HYBRID_ARCH: ("linear_scan", "flash_attention",
                               "decode_attention")}
 
+# phase 7 (train): K4b at llama3.2-1b's training attention and at
+# recurrentgemma-9b's (B, H, Hkv, S, D). Float32 gradients within
+# K4B_F32_TOL of max(1, |plain|) (the reference's float32 kernel tolerance);
+# bf16 ones per row within K4B_ROW_TOL of the row's largest |grad| (the
+# K5/K6 rule: 2 to 4 bf16 ulps of it), that scale floored at K4B_ROW_FLOOR
+# of the tensor's largest |grad| for the rows whose exact gradient is 0
+# (the first causal query's dq: float32 noise on both sides)
+TRAIN_ATTN, GRIFFIN_ATTN = (2, 32, 8, 2048, 64), (1, 16, 1, 4096, 256)
+K4B_F32_TOL, K4B_ROW_TOL, K4B_ROW_FLOOR = 5e-5, 2.0 ** -6, 2.0 ** -12
+# (b) the float32 step of llama3.2-1b at full width, cut to 2 layers (the
+# CPU's step at full depth would take minutes), card vs CPU: loss and
+# global grad norm within FULL_WIDTH_TOL, every gradient's max |diff|
+# within STEP_GRAD_TOL of its max |grad| (summation order differs: cuBLAS,
+# K4/K4b against the CPU's matmuls and plain versions); the card's AdamW
+# update within ADAMW_TOL of the CPU's on the card's gradients (lr 1e-3)
+STEP_LAYERS, STEP_B, STEP_S = 2, 1, 128
+STEP_GRAD_TOL, ADAMW_TOL = 1e-4, 1e-6
+# (c) the slice: llama3.2-1b at full width and depth, B=2, S=2048 (two
+# 1,024-token loss chunks), 10 steps
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 10
+
 DECISION_COLS = ("predicted_cold", "feasible")
 FLOAT_COLS = ("predicted_latency_ms", "predicted_cost", "allowed_cost")
 ALL_COLS = FLOAT_COLS + DECISION_COLS + (
@@ -320,9 +361,14 @@ def main() -> int:
              timed("live ssm", phase_live, dev, SSM_ARCH),
              timed("live hybrid", phase_live, dev, HYBRID_ARCH)]
     repeat = timed("k4 f32 repeat", fa_f32_repeat, dev)
+    trained = timed("train", phase_train, dev, card)
+    rows.append(trained["row"])
     # each kernel's launches over its main paths' runs: the placement
-    # stream's and every live serve's (counts zeroed before each)
+    # stream's, every live serve's and the training slice's (counts zeroed
+    # before each)
     launches = dict(serve["launches"])
+    for name, n in trained["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     replayed = {}
     for live in lives:
         for name, n in live["launches"].items():
@@ -2250,6 +2296,431 @@ def plan_faults(dev) -> None:
         fail("plan (e): the replay's retries differ")
     plan_part("e replay", N_FAULT, secs, counts,
               "bit-identical to the faulted card stream")
+
+
+# ------------------------------------------------------------------ phase 7
+def k4b_planted(q, k, v, o, g, causal, window, fault):
+    """K4b's plain formulas with one fault planted, in float32 on the card,
+    rounded to q's dtype: ``delta`` dropped from dS, the window's edge one
+    key too far back, or query head 0 of every group left out of dK."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import NEG_INF, _mask
+
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qf, gf, of = (t.float().reshape(B, Hkv, G, S, D) for t in (q, g, o))
+    kf, vf = k.float(), v.float()
+    mask = _mask(S, S, causal, window + (fault == "window"), q.device)
+    s = torch.where(mask, torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale,
+                    NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", gf, vf)
+    delta = 0.0 if fault == "delta" else (gf * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, gf)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    if fault == "gqa":
+        ds, qf = ds[:, :, 1:], qf[:, :, 1:]
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return tuple(t.to(q.dtype) for t in (dq.reshape(B, H, S, D), dk, dv))
+
+
+def k4b_row_err(got, want) -> float:
+    """The largest, over rows of dq, dk and dv, of a row's max |got - want|
+    over its largest |want|, that scale floored at K4B_ROW_FLOOR of the
+    tensor's largest |want|: a row whose exact gradient is 0 (a causal
+    query that sees only itself has dq = 0) holds float32 noise on both
+    sides."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = (t.float().reshape(-1, t.shape[-1]) for t in (a, b))
+        scale = b.abs().amax(-1).clamp_min(K4B_ROW_FLOOR * float(b.abs().max()))
+        worst = max(worst, float(((a - b).abs().amax(-1) / scale).max()))
+    return worst
+
+
+def k4b_f32_err(got, want) -> float:
+    """The largest |got - want| / max(1, |want|) over dq, dk and dv."""
+    return max(float(((a.float() - b.float()).abs()
+                      / b.float().abs().clamp_min(1.0)).max())
+               for a, b in zip(got, want))
+
+
+def k4b_case(shape, dtype, dev, causal, window, reps, faults=()):
+    """K4b against its plain version at one shape (B, H, Hkv, S, D), with
+    the planted faults of ``faults`` (bf16), its time, its plain version's
+    and SDPA's forward + backward less its forward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        _mask,
+        flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
+        flash_attention_bwd_plain,
+    )
+
+    B, H, Hkv, S, D = shape
+    q, k, v = attn_inputs((B, H, Hkv, S, S, D), dtype, dev, seed=D + window)
+    g = torch.as_tensor(np.random.default_rng(D).normal(size=(B, H, S, D)),
+                        dtype=dtype).to(dev)
+    kw = dict(causal=causal, window=window)
+    o = flash_attention_bhsd(q, k, v, **kw)  # what FlashAttentionFn saves
+    got = flash_attention_bwd_bhsd(q, k, v, o, g, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, g, **kw)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    res = {"err": max(max_err(a, b) for a, b in zip(got, want))}
+    if dtype == torch.float32:
+        res["rel_err"] = k4b_f32_err(got, want)
+        if res["rel_err"] > K4B_F32_TOL:
+            fail(f"K4b {shape} float32 window={window} differs from its "
+                 f"plain version by {res['rel_err']} of max(1, |grad|)")
+    else:
+        res["row_err"] = k4b_row_err(got, want)
+        if res["row_err"] > K4B_ROW_TOL:
+            fail(f"K4b {shape} bf16 window={window}: a row differs from the "
+                 f"plain version by {res['row_err']} of its largest |grad|")
+        res["fault_row_err"] = {
+            f: k4b_row_err(k4b_planted(q, k, v, o, g, causal, window, f),
+                           want) for f in faults}
+        missed = [f for f, e in res["fault_row_err"].items()
+                  if e <= K4B_ROW_TOL]
+        if missed:
+            fail(f"K4b {shape}: the row limit misses planted faults {missed}:"
+                 f" {res['fault_row_err']}")
+    del got, want
+    mask = _mask(S, S, causal, window, dev)
+    pairs = int(mask.sum())
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_kw = dict(attn_mask=mask) if window else dict(is_causal=causal)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*xs, enable_gqa=True, **sdpa_kw)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), xs, g)
+
+    res.update(
+        ms=cuda_ms(lambda: flash_attention_bwd_bhsd(q, k, v, o, g, **kw), reps),
+        plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, g, **kw),
+                         2),
+        library_ms=cuda_ms(sdpa_fwd_bwd, reps) - cuda_ms(sdpa_fwd, reps),
+        k4_ms=cuda_ms(lambda: flash_attention_bhsd(q, k, v, **kw), reps),
+        # q, k, v, o and g read once, dq, dk and dv written once; the
+        # recompute of S and four products (dP, dV, dQ, dK) on the pairs
+        # the mask leaves live
+        nbytes=q.element_size() * (4 * q.numel() + 4 * k.numel()),
+        ops=5 * 2.0 * B * H * pairs * D, dtype=name)
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["ops"], name)
+    log(f"[k4b] {shape} {name} causal={causal} window={window}: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def train_step_check(dev) -> dict:
+    """One float32 training step of llama3.2-1b at full width and
+    STEP_LAYERS layers on the card and on the CPU from the same parameters
+    and batch: the loss, the global grad norm and every parameter's
+    gradient (the q/k/v ones through K4b), then the card's AdamW update
+    against the CPU's AdamW applied to the card's gradients."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = get_config(ARCH).with_updates(n_layers=STEP_LAYERS,
+                                        dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = {k: t.to(dev).requires_grad_(True) for k, t in cpu.items()}
+    for t in cpu.values():
+        t.requires_grad_(True)
+    batch = make_pipeline(cfg, seq_len=STEP_S, global_batch=STEP_B,
+                          seed=0).batch(0)
+    kernels.reset_launch_counts()
+    (loss_d, _), g_d = _value_and_grad(
+        model, card, {k: torch.as_tensor(v, device=dev)
+                      for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    t0 = time.perf_counter()
+    (loss_c, _), g_c = _value_and_grad(
+        model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = {k: float((g_d[k].cpu() - g_c[k]).abs().max()
+                    / g_c[k].abs().max().clamp_min(1e-30)) for k in g_c}
+    worst = max(rel, key=rel.get)
+    norm_d, norm_c = float(opt.global_norm(g_d)), float(opt.global_norm(g_c))
+    res = {"layers": STEP_LAYERS, "batch": [STEP_B, STEP_S],
+           "loss_card": float(loss_d), "loss_cpu": float(loss_c),
+           "loss_rel_err": abs(float(loss_d) - float(loss_c)) / abs(float(loss_c)),
+           "grad_norm_rel_err": abs(norm_d - norm_c) / norm_c,
+           "grad_max_rel_err": rel[worst], "grad_worst": worst,
+           "attn_grad_max_rel_err": max(v for k, v in rel.items()
+                                        if "/attn/" in k),
+           "launches": launches, "cpu_s": cpu_s}
+    # AdamW: the card's update against the CPU's on the card's gradients
+    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+    g_dc = {k: t.cpu() for k, t in g_d.items()}
+    with torch.no_grad():
+        ref = {k: t.detach().clone() for k, t in cpu.items()}
+    opt.adamw_update(card, g_d, opt.init_opt_state(card), ocfg)
+    opt.adamw_update(ref, g_dc, opt.init_opt_state(ref), ocfg)
+    res["adamw_max_abs_err"] = max(float((card[k].detach().cpu() - ref[k])
+                                         .abs().max()) for k in ref)
+    opt.adamw_update(cpu, g_c, opt.init_opt_state(cpu), ocfg)
+    res["params_card_vs_cpu_max_abs"] = max(
+        float((card[k].detach().cpu() - cpu[k].detach()).abs().max())
+        for k in cpu)
+    log(f"[train] (b) float32 step, card vs CPU: {json.dumps(res)}")
+    if res["loss_rel_err"] > FULL_WIDTH_TOL or \
+            res["grad_norm_rel_err"] > FULL_WIDTH_TOL or \
+            res["grad_max_rel_err"] > STEP_GRAD_TOL or \
+            res["adamw_max_abs_err"] > ADAMW_TOL:
+        fail(f"the float32 training step on the card differs from the "
+             f"CPU's: {res}")
+    if launches.get("flash_attention_bwd", 0) != STEP_LAYERS or \
+            launches.get("flash_attention", 0) != 2 * STEP_LAYERS:
+        fail(f"the float32 step launched {launches}: expected K4 twice and "
+             f"K4b once per layer")
+    return res
+
+
+def step_split(model, params, batch, opt_cfg) -> dict:
+    """Device ms of one training step of the slice by kind of kernel
+    (``torch.profiler``): matmuls (cuBLAS), K4, K4b, and everything else;
+    and the loss (chunked cross-entropy forward + backward on the final
+    hidden states) and AdamW (clip + update) timed apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    from repro_torch.training.train_loop import _value_and_grad
+
+    def step():
+        _, grads = _value_and_grad(model, params, batch)
+        adamw_update(params, grads, state, opt_cfg)
+
+    state = init_opt_state(params)
+    torch.cuda.synchronize()
+    step()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    split = {"matmul": 0.0, "k4": 0.0, "k4b": 0.0, "other": 0.0}
+    others = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "device_time_total", 0.0) / 1e3
+        key = e.key.lower()
+        if "fa_bwd" in key:
+            split["k4b"] += ms
+        elif "fa_tc_kernel" in key or "fa_f32_kernel" in key:
+            split["k4"] += ms
+        elif any(w in key for w in ("gemm", "xmma", "cutlass", "cublas",
+                                    "nvjet", "sm90_", "splitk")):
+            split["matmul"] += ms
+        else:
+            split["other"] += ms
+            others[e.key[:80]] = others.get(e.key[:80], 0.0) + ms
+    if not sum(split.values()):
+        fail("torch.profiler recorded no device time")
+    split["total"] = sum(split.values())
+    split["top_other"] = dict(sorted(others.items(),
+                                     key=lambda kv: -kv[1])[:8])
+    with torch.no_grad():
+        h, _ = model.forward(params, batch)
+    h.requires_grad_(True)
+    split["loss_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        model._xent(params, h, batch), (h,)), 2)
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    split["adamw_ms"] = cuda_ms(lambda: adamw_update(params, grads, state,
+                                                     opt_cfg), 2)
+    del grads, state
+    return split
+
+
+def slice_run(dev) -> dict:
+    """The slice: llama3.2-1b at full width and depth, bf16 compute,
+    float32 master parameters, remat "full", TRAIN_STEPS steps of
+    (TRAIN_B, TRAIN_S) through ``train()``; launch counts zeroed just before
+    and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import LoopConfig, train
+
+    cfg = get_config(ARCH)
+    if (cfg.dtype, cfg.param_dtype, cfg.remat) != ("bfloat16", "float32",
+                                                    "full"):
+        fail(f"{ARCH}'s config is not the slice's: {cfg}")
+    model = build_model(cfg)
+    pipe = make_pipeline(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    ocfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                           decay_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = train(model, pipe, LoopConfig(steps=TRAIN_STEPS, log_every=1),
+                ocfg, seed=0, device=dev, log=log)
+    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(res.step_s)) * 1e3
+    out = {"params": model.param_count(), "steps": TRAIN_STEPS,
+           "batch": [TRAIN_B, TRAIN_S], "loss_chunk": cfg.loss_chunk,
+           "median_step_ms": step_ms, "step_ms": [s * 1e3 for s in res.step_s],
+           "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+           "peak_gib": peak / 2 ** 30, "loss_first": res.losses[0],
+           "loss_last": res.losses[-1], "launches": launches,
+           "per_step": {k: n / TRAIN_STEPS for k, n in launches.items()}}
+    log(f"[train] (c) {ARCH} full width, {TRAIN_STEPS} steps: "
+        f"{json.dumps(out)}")
+    if not np.all(np.isfinite(res.losses)):
+        fail(f"the slice's losses are not finite: {res.losses}")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    if out["per_step"] != want:
+        fail(f"the slice launched {out['per_step']} per step, expected "
+             f"{want} (K4 twice per layer with the remat recompute, K4b "
+             f"once)")
+    # the step's device time by kind, on fresh parameters and one batch
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = model.init(gen, device=dev)
+    for p in params.values():
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch(0).items()}
+    out["split_ms"] = step_split(model, params, batch, ocfg)
+    log(f"[train] (c) one step's device ms by kind: "
+        f"{json.dumps(out['split_ms'])}")
+    del params, batch
+    return out
+
+
+def restart_check(dev) -> dict:
+    """Determinism and restart on the ``examples/train_100m_torch.py``
+    configuration (float32, remat none): two runs from one seed give the
+    same losses, and ``run_with_restarts`` with a failure at step 6 and
+    checkpoints every 2 steps (under ``build/``, removed after) matches
+    the uninterrupted run within rtol 1e-5 (the reference's own test)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import (
+        FailureInjector,
+        LoopConfig,
+        run_with_restarts,
+        train,
+    )
+
+    cfg = get_config(ARCH).with_updates(
+        n_layers=12, d_model=768, n_heads=12, n_kv_heads=4, head_dim=64,
+        d_ff=2048, vocab=32000, dtype="float32", remat="none",
+        q_chunk=128, loss_chunk=128, scan_layers=True)
+    model = build_model(cfg)
+    pipe = make_pipeline(cfg, seq_len=256, global_batch=8, seed=0)
+    ocfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2, decay_steps=10)
+    plain = LoopConfig(steps=10, log_every=100, ckpt_every=1000)
+    a = train(model, pipe, plain, ocfg, seed=0, device=dev)
+    b = train(model, pipe, plain, ocfg, seed=0, device=dev)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = run_with_restarts(model, pipe, LoopConfig(
+        steps=10, log_every=100, ckpt_every=2, ckpt_dir=str(ckpt_dir),
+        keep=2), ocfg, seed=0, injector=FailureInjector(fail_at=6),
+        device=dev)
+    restart_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("arrays.npz"))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    res = {"params": model.param_count(), "losses": a.losses,
+           "repeat_bit_equal": a.losses == b.losses,
+           "restarts": r.restarts, "resumed_losses": r.losses,
+           "resumed_bit_equal": r.losses == a.losses[6:],
+           "resumed_max_rel_err": float(np.max(np.abs(
+               np.asarray(r.losses) - np.asarray(a.losses[6:]))
+               / np.abs(np.asarray(a.losses[6:])))),
+           "checkpoint_gb": ckpt_bytes / 1e9 / 2, "restart_run_s": restart_s}
+    log(f"[train] (d) train_100m determinism and restart: {json.dumps(res)}")
+    if not res["repeat_bit_equal"]:
+        fail(f"two runs from one seed gave different losses: {a.losses} / "
+             f"{b.losses}")
+    if r.restarts != 1 or r.final_step != 10 or \
+            res["resumed_max_rel_err"] > 1e-5:
+        fail(f"the restarted run does not match the uninterrupted one: {res}")
+    return res
+
+
+def phase_train(dev, card) -> dict:
+    """(a) K4b against its plain version and SDPA at llama3.2-1b's and
+    recurrentgemma-9b's training shapes; (b) a float32 step on the card
+    against the CPU; (c) the slice, llama3.2-1b trained at full width;
+    (d) determinism and restart. Returns K4b's row and the slice's
+    launches."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] {card}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    llama = k4b_case(TRAIN_ATTN, bf16, dev, True, 0, 5, ("delta", "gqa"))
+    griffin = {"griffin_s4096": k4b_case(GRIFFIN_ATTN, bf16, dev, True, WINDOW,
+                                         2, ("delta", "window", "gqa")),
+               "griffin_s4096_f32": k4b_case(GRIFFIN_ATTN, f32, dev, True,
+                                             WINDOW, 2)}
+    step = train_step_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl = slice_run(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rs = restart_check(dev)
+    extra = {"row_err": llama["row_err"], "row_tol": K4B_ROW_TOL,
+             "row_floor": K4B_ROW_FLOOR, "fault_row_err": llama["fault_row_err"],
+             "k4_ms": llama["k4_ms"], "f32_tol": K4B_F32_TOL}
+    for tag, c in griffin.items():
+        extra.update({f"{tag}_{key}": c[key] for key in
+                      ("ms", "plain_ms", "library_ms", "err", "bound_ms",
+                       "bound_by", "k4_ms") if key in c})
+        for key in ("row_err", "rel_err", "fault_row_err"):
+            if key in c:
+                extra[f"{tag}_{key}"] = c[key]
+    extra["train_median_step_ms"] = sl["median_step_ms"]
+    extra["train_launches_per_step"] = sl["per_step"]["flash_attention_bwd"]
+    k4b = row("flash_attention_bwd",
+              "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "none; the reference differentiates its XLA chunked attention, "
+              "src/repro/modeling/attention.py:50",
+              llama["ms"], llama["plain_ms"], llama["err"], llama["nbytes"],
+              llama["ops"], "bfloat16", library_ms=llama["library_ms"],
+              shape="q/o/do (2, 32, 2048, 64) k/v (2, 8, 2048, 64) bf16 "
+                    "causal (llama3.2-1b's training step); griffin_s4096: "
+                    "q (1, 16, 4096, 256) k/v (1, 1, 4096, 256) causal, "
+                    "window 2048 (recurrentgemma-9b), bf16 and float32",
+              **extra)
+    return {"row": k4b, "launches": sl["launches"], "step": step,
+            "slice": sl, "restart": rs}
 
 
 def np_equal(a, b) -> bool:

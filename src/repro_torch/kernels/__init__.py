@@ -3,12 +3,18 @@
 Each ``<name>/kernel.py`` holds the launch wrapper of a CUDA kernel from
 ``repro_torch/csrc`` and its plain PyTorch version. A wrapper runs the plain
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
-or raises. Every wrapper counts its launches in a plain integer attribute
+or raises; where autograd would need a gradient through a CUDA launch,
+a wrapper goes through an ``autograd.Function`` whose backward is a kernel
+(K4, ``flash_attention``) or raises ``NotImplementedError`` before it
+launches (the kernels without a backward yet), so no gradient is dropped
+silently. Every wrapper counts its launches in a plain integer attribute
 ``launches`` (incremented where the kernel is launched and nowhere else);
 ``launch_counts``/``reset_launch_counts`` read and zero them all.
 ``recording`` tallies the launches of one thread alone, as a CUDA-graph
 capture needs while other threads launch kernels of their own; its blocks
-nest.
+nest. (A backward pass on the card runs on autograd's own device thread,
+so its launches, K4b's and a checkpoint's recomputed K4's, show in the
+counts and not in a ``recording`` block of the caller.)
 
 Importing this package imports torch only: the kernels are compiled
 (``_build``) the first time a wrapper meets a CUDA tensor.
@@ -26,6 +32,7 @@ def wrappers() -> dict:
     )
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
     )
     from repro_torch.kernels.gbrt_predict.kernel import (
         gbrt_predict_blocked,
@@ -44,6 +51,7 @@ def wrappers() -> dict:
             "state_replay": state_replay,
             "state_walk": state_walk,
             "flash_attention": flash_attention_bhsd,
+            "flash_attention_bwd": flash_attention_bwd_bhsd,
             "decode_attention": decode_attention_bhd,
             "ssd_scan": ssd_scan_bhsd}
 

@@ -3,11 +3,12 @@
 Every source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/kernels/<name>-<hash>.so`` at the root of the checkout
 (``build/`` is git-ignored), compiled for Hopper (``sm_90a``) on first use.
-Every source but the two attention kernels (``flash_attention``,
-``decode_attention``) is built with ``-fmad=false``: their parities with the
-plain versions (bit-equal in float64) rest on no multiply and add being
-contracted into an FMA; the attention kernels' online softmax wants its FMAs
-and is held to a tolerance (``flags``). The hash covers the source and its
+Every source but the attention kernels (``flash_attention``, its backward
+``flash_attention_bwd``, ``decode_attention``) is built with
+``-fmad=false``: their parities with the plain versions (bit-equal in
+float64) rest on no multiply and add being contracted into an FMA; the
+attention kernels' softmax and dot products want their FMAs and are held to
+a tolerance (``flags``). The hash covers the source and its
 flags, so an edited source or flag rebuilds and an unchanged one loads at
 once.
 ``build_all`` starts one ``nvcc`` per source, all together, and waits for
@@ -35,11 +36,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gbrt_predict", "linear_scan", "state_replay", "flash_attention",
-           "decode_attention", "ssd_scan")
+           "flash_attention_bwd", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # sources free to contract a multiply and an add into an FMA
-FMAD_SOURCES = ("flash_attention", "decode_attention")
+FMAD_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -163,6 +164,28 @@ def counted(wrapper) -> None:
     tally = getattr(_RECORDING, "tally", None)
     if tally is not None:
         tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would differentiate through a call on ``tensors``:
+    grad mode is on and one of them requires a gradient."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` before a launch that autograd would have
+    to differentiate through, for a kernel with no backward kernel yet: its
+    output is written through ctypes and has no ``grad_fn``, so a backward
+    pass would silently give no gradient to anything behind it. CPU tensors
+    never get here (their plain versions are differentiable)."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel has no backward on the card yet (it comes "
+            "with a later slice of the port); call it under torch.no_grad() "
+            "or on tensors that do not require a gradient")
 
 
 def check(rc: int, what: str) -> None:

@@ -131,6 +131,7 @@ def decode_attention_bhd(q, k, v, lengths, *, out=None):
     if q.device.type == "cpu":
         res = decode_attention_plain(q, k, v, lengths)
         return res if out is None else out.copy_(res)
+    _build.refuse_grad("decode_attention", q, k, v)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _check(q, k, v, lengths, out)

@@ -14,6 +14,16 @@ would give the mean of V there; no causal self-attention row has none).
 The kernel reads strided views whose last dimension is contiguous, so the
 model's (B, S, H, D) tensors pass in transposed, without a copy, and ``out``
 may be such a view too.
+
+``flash_attention_bwd_bhsd`` (K4b) is its gradient, hand-written for the
+card (``repro_torch/csrc/flash_attention_bwd.cu``; the reference has no
+Pallas backward and differentiates its XLA chunked attention instead):
+given the forward's output and its cotangent it returns dq, dk and dv with
+the same mask, float32 arithmetic and no atomics.
+``flash_attention_bwd_plain`` writes the same gradient out as formulas on
+the full score matrix. Where autograd needs a gradient through
+``flash_attention_bhsd`` on the card, the call goes through
+``ops.FlashAttentionFn``, whose backward is K4b.
 """
 
 from __future__ import annotations
@@ -82,7 +92,17 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     see the module docstring. Returns ``out`` (allocated when not given).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``flash_attention_{f32,bf16}`` or raise."""
+    ``flash_attention_{f32,bf16}`` or raise. Where autograd needs a
+    gradient through the call on the card it goes through
+    ``ops.FlashAttentionFn`` (forward K4, backward K4b), which writes no
+    ``out`` in place."""
+    if q.device.type != "cpu" and _build.needs_grad(q, k, v):
+        if out is not None:
+            raise ValueError("flash_attention: no in-place out= under "
+                             "autograd")
+        from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         res = flash_attention_plain(q, k, v, causal=causal, window=window)
         return res if out is None else out.copy_(res)
@@ -104,3 +124,86 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention_bhsd.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
+                              window: int = 0):
+    """The gradient of ``flash_attention_plain`` as explicit formulas on the
+    full (Sq, Skv) score matrix, in float32 on any device: P the normalised
+    probabilities (0 where masked), ``dv = P^T do``, ``dP = do v^T``,
+    ``delta = rowsum(do * o)`` from the given forward output ``o``,
+    ``dS = P (dP - delta)``, ``dq = dS k * scale`` and ``dk = dS^T q * scale``,
+    dk and dv summed over each K/V head's G query heads. Returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, Hkv, G, Sq, D)
+    gf = do.float().reshape(B, Hkv, G, Sq, D)
+    of = o.float().reshape(B, Hkv, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, gf)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", gf, vf)
+    delta = (gf * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_bhsd(q, k, v, o, do, *, causal: bool = True,
+                             window: int = 0, dq=None, dk=None, dv=None):
+    """dq, dk, dv of ``flash_attention_bhsd(q, k, v)`` for its output ``o``
+    and the cotangent ``do`` (both (B, H, Sq, D)); see the module docstring.
+    Returns (dq, dk, dv), each the given output (a strided view is fine)
+    or a new tensor.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``flash_attention_bwd_{f32,bf16}`` (three kernels: row statistics, then
+    dk/dv, then dq; one call, one count) or raise."""
+    if q.device.type == "cpu":
+        res = flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        window=window)
+        return tuple(r if t is None else t.copy_(r)
+                     for r, t in zip(res, (dq, dk, dv)))
+    _build.refuse_grad("flash_attention_bwd", q, k, v, o, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) \
+        if dq is None else dq
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device) \
+        if dk is None else dk
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device) \
+        if dv is None else dv
+    _check(q, k, v, o)
+    for name, t, like in (("do", do, q), ("dq", dq, q), ("dk", dk, k),
+                          ("dv", dv, k)):
+        if t.dtype != q.dtype or t.device != q.device \
+                or t.shape != like.shape or t.stride(-1) != 1:
+            raise ValueError(f"{name} must match {tuple(like.shape)} in "
+                             f"q's dtype and device with a contiguous last "
+                             f"dimension, got {t.dtype} {tuple(t.shape)} "
+                             f"strides {t.stride()} on {t.device}")
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    P, I32 = _build.P, _build.I32
+    fn = _build.function("flash_attention_bwd",
+                         f"flash_attention_bwd_{_SUFFIX[q.dtype]}",
+                         [P] * 10 + [I32] * 6 + [P, I32, I32, _build.F32, P])
+    rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+            _build.ptr(do), _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
+            _build.ptr(stats[0]), _build.ptr(stats[1]), B, H, Hkv, Sq, Skv, D,
+            _build.strides(q, k, v, o, do, dq, dk, dv), int(bool(causal)),
+            int(window or 0), 1.0 / (D ** 0.5), _build.stream_of(q))
+    _build.check(rc, "flash_attention_bwd")
+    _build.counted(flash_attention_bwd_bhsd)
+    return dq, dk, dv
+
+
+flash_attention_bwd_bhsd.launches = 0

@@ -176,6 +176,8 @@ def gbrt_predict_multi(x, mem, lr, base, features, thresholds, leaves, *,
     if x.device.type == "cpu":
         return gbrt_predict_multi_plain(x, mem, lr, base, features, thresholds,
                                         leaves, depth=depth)
+    _build.refuse_grad("gbrt_predict_multi", x, mem, lr, base, thresholds,
+                       leaves)
     dtype, device = x.dtype, x.device
     sfx = _suffix(dtype)
     C, T, I = features.shape
@@ -221,6 +223,7 @@ def gbrt_predict_blocked(x, features, thresholds, leaves, *, depth: int,
     if x.device.type == "cpu":
         return gbrt_predict_blocked_plain(x, features, thresholds, leaves,
                                           depth=depth, lr=lr, base=base)
+    _build.refuse_grad("gbrt_predict_blocked", x, thresholds, leaves)
     dtype, device = x.dtype, x.device
     sfx = _suffix(dtype)
     T, I = features.shape

@@ -52,6 +52,7 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
     ``scan_regime``) or raise."""
     if x.device.type == "cpu":
         return linear_scan_plain(x, a)
+    _build.refuse_grad("linear_scan", x, a)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"linear_scan takes float32 or float64, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():

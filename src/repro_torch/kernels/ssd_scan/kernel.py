@@ -151,6 +151,7 @@ def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None):
     if x.device.type == "cpu":
         y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         return (y if out is None else out.copy_(y)), state
+    _build.refuse_grad("ssd_scan", x, dt, A, B, C)
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     b, H, S, hd = x.shape

@@ -235,6 +235,8 @@ def state_replay(nows, guess, *, ecomp=None, h0=None, nom_fixed=None,
                 buf.copy_(val)
             res = res._replace(busy=out[0], last=out[1], cnt=out[2])
         return res
+    _build.refuse_grad("state_replay", nows, ecomp, h0, occw, occc, busy0,
+                       last0)
     device = nows.device
     need = smem_bytes(nd, nc, cap)
     if need > SMEM_LIMIT:
@@ -484,6 +486,8 @@ def state_walk(nows, n: int, *, ecomp=None, elat=None, h0=None,
               deadline=deadline)
     if nows.device.type == "cpu":
         return state_walk_plain(nows, n, **kw)
+    _build.refuse_grad("state_walk", nows, *(v for v in kw.values()
+                                             if isinstance(v, torch.Tensor)))
     device = nows.device
     R = nows.shape[0]
     nd = 0 if ecomp is None else ecomp.shape[1]

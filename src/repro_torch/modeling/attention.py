@@ -9,7 +9,10 @@ and run their plain versions for CPU tensors. ``impl`` is accepted for the
 reference's signature and not routed on. Both compute in float32 and round
 only the output, as the TPU kernels do (the reference's XLA path rounds the
 probabilities to the value dtype before the P·V product, so in bf16 its two
-paths differ slightly; the port follows the kernels).
+paths differ slightly; the port follows the kernels). Where a training step
+needs a gradient through ``attention``, K4's autograd Function runs it, its
+backward the hand-written flash-attention backward (K4b); the reference
+differentiates its XLA path instead.
 
 The windowed ring-buffer decode (a local-window cache with slot positions)
 has no kernel in the reference either and stays plain torch here, computed

@@ -26,7 +26,11 @@ states and conv windows, the token's K/V slot, ``cache["pos"]``), with the
 slot and the lengths computed on the device: a serving executor replays the
 step from a CUDA graph over static buffers.
 
-``loss`` comes with the training slice of the port.
+``loss`` is the chunked cross-entropy, as in ``lm.py``; ``cfg.remat``
+checkpoints each training layer (the reference checkpoints each (rec, rec,
+attn) group's body and runs the tail unchecked: the same values). On the
+card a training step raises at K3, which has no backward kernel yet; on the
+CPU the plain scan is differentiated.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.modeling.attention import attention, decode_attention
 from repro_torch.modeling.layers import apply_norm, norm_specs
 from repro_torch.modeling.lm import (
     LM,
+    _maybe_remat,
     attn_qkv,
     attn_specs,
     logits_f32,
@@ -46,6 +51,7 @@ from repro_torch.modeling.lm import (
 from repro_torch.modeling.module import (
     ParamSpec,
     layer_slice,
+    layer_slices,
     prefix_specs,
     stacked,
     subtree,
@@ -176,6 +182,21 @@ class GriffinLM(LM):
             lengths = lengths.expand(x.shape[0]).contiguous()
         sts, cvs, kcs, vcs = [], [], [], []
         ri = ai = 0
+        if mode == "train":
+            rec = _maybe_remat(lambda p, x: self._rec_layer(p, x)[0],
+                               self.cfg.remat)
+            att = _maybe_remat(
+                lambda p, x: self._attn_layer(p, x, positions, mode)[0],
+                self.cfg.remat)
+            rec_ls, attn_ls = layer_slices(rec_p), layer_slices(attn_p)
+            for kind in layer_kinds(self.cfg):
+                if kind == "rec":
+                    x = rec(rec_ls[ri], x)
+                    ri += 1
+                else:
+                    x = att(attn_ls[ai], x)
+                    ai += 1
+            return x, None
         for kind in layer_kinds(self.cfg):
             if kind == "rec":
                 x, st, cv = self._rec_layer(
@@ -208,9 +229,11 @@ class GriffinLM(LM):
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: the loss comes with the training slice of the "
-            "port")
+        """(loss, {"xent"}): the mean masked next-token cross-entropy, as
+        the reference's ``GriffinLM.loss`` returns it."""
+        h, _ = self.forward(params, batch)
+        loss = self._xent(params, h, batch)
+        return loss, {"xent": loss}
 
     # ------------------------------------------------------------ serving
     def cache_shape(self, batch_size: int, cache_len: int) -> dict:

@@ -64,6 +64,14 @@ def norm_specs(kind: str, d: int) -> dict[str, ParamSpec]:
     raise ValueError(f"unknown norm {kind!r}")
 
 
+def softcap(logits, cap: float):
+    """``tanh(logits / cap) * cap`` (Gemma-style logit soft-capping); the
+    logits unchanged when ``cap`` is 0."""
+    if cap and cap > 0:
+        return torch.tanh(logits / cap) * cap
+    return logits
+
+
 # ---------------------------------------------------------------- activations
 def activation(kind: str, x, x_gate=None):
     """Gated activations take (gate_input, linear_input)."""

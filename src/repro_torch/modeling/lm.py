@@ -21,6 +21,11 @@ every step, and the step's valid length ``pos + 1`` runs past the cache, so
 every slot stays valid. The port writes at ``min(pos, kv_len - 1)`` and
 hands the flash-decode kernel the same length.
 
+``loss`` is the chunked cross-entropy (``modeling/losses.py``), and
+``cfg.remat`` checkpoints each training layer (``_maybe_remat``): under
+``"full"`` a layer's forward runs again in the backward pass, so its
+attention launches K4 twice per step and its backward K4b once.
+
 ``decode_step`` writes the new K/V into ``cache`` and advances
 ``cache["pos"]`` in place (the JAX step returns a new cache): on the card a
 serving executor replays the step from a CUDA graph over static buffers,
@@ -32,8 +37,15 @@ grouped ``moe_every`` layout), the vision prefix and the int8 KV cache.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.modeling.attention import attention, decode_attention
 from repro_torch.modeling.layers import (
@@ -47,6 +59,7 @@ from repro_torch.modeling.module import (
     ParamSpec,
     init_params,
     layer_slice,
+    layer_slices,
     param_count,
     prefix_specs,
     stacked,
@@ -107,17 +120,72 @@ def attn_qkv(cfg, p: dict, h, positions):
     return q, k, v
 
 
+class _MixedLogits(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)`` with a backward: PyTorch has no
+    derivative for ``aten::mm.dtype``. The backward takes the float32
+    cotangent as it is, as the reference's transpose of its
+    ``preferred_element_type=float32`` product does: ``dx = g w^T`` and
+    ``dw = x^T g`` in float32, each rounded once to its operand's dtype
+    (nothing rounds the logits or their cotangent to bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ w.float().T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.float().T @ g).to(w.dtype)
+        return dx, dw
+
+
 def logits_f32(x, w):
     """(B, d) @ (d, V) with float32 accumulation and a float32 result from
     operands in ``x``'s dtype (the reference's
     ``preferred_element_type=float32``). On the card a bf16 product goes to
     one matmul with a float32 output; nothing makes a float32 copy of the
-    (d, V) unembedding there."""
+    (d, V) unembedding there (its backward, ``_MixedLogits``, does)."""
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _MixedLogits.apply(x, w)
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matmuls' outputs, recompute the rest (the
+    reference's ``dots_with_no_batch_dims_saveable``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.mm.dtype)
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` under activation checkpointing: ``"full"`` recomputes all of
+    its forward in the backward pass (``torch.utils.checkpoint``),
+    ``"dots"`` keeps the matmuls' outputs and recomputes the rest
+    (``create_selective_checkpoint_contexts``), ``"none"`` keeps
+    everything. Applied to a training layer only when grad mode is on."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    elif remat != "full":
+        raise ValueError(f"unknown remat {remat!r}")
+    return partial(checkpoint, fn, use_reentrant=False,
+                   preserve_rng_state=False, **kw)
 
 
 class LM(nn.Module):
@@ -239,6 +307,11 @@ class LM(nn.Module):
             slot = write_pos.clamp(max=kv_len - 1).long().reshape(1)
             lengths = (write_pos + 1).to(torch.int32).expand(x.shape[0])
             lengths = lengths.contiguous()
+        if mode == "train":
+            train_layer = _maybe_remat(self._train_layer, self.cfg.remat)
+            for p in layer_slices(layers):
+                x = train_layer(p, x, positions)
+            return x, None
         kvs = []
         for i in range(self.cfg.n_layers):
             kc = cache["k"][i] if dec else None
@@ -248,13 +321,42 @@ class LM(nn.Module):
             kvs.append((kc, vc))
         return x, (kvs if mode == "prefill" else None)
 
+    def _train_layer(self, p, x, positions):
+        return self._layer(p, x, positions, "train")[0]
+
     def forward(self, params, batch):
-        """Scoring forward: returns (hidden (B, S, D), aux_loss = 0)."""
+        """Training/scoring forward: returns (hidden (B, S, D), aux_loss =
+        0); ``cfg.remat`` checkpoints each layer."""
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, _ = self._trunk(params, x, positions, "train")
         x = apply_norm(self.cfg.norm, x, params, "ln_f")
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # --------------------------------------------------------------- loss
+    def _xent(self, params, h, batch):
+        """Mean masked cross-entropy of ``h`` against ``batch["targets"]``
+        (the reference's chunked loss, ``cfg.loss_chunk``/``loss_impl``/
+        ``logits_softcap``)."""
+        from repro_torch.modeling.losses import chunked_softmax_xent
+
+        cfg = self.cfg
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
+                              device=h.device)
+        loss_sum, denom = chunked_softmax_xent(
+            h, self._unembed(params).to(h.dtype), batch["targets"],
+            mask.float(), chunk=cfg.loss_chunk, cap=cfg.logits_softcap,
+            impl=cfg.loss_impl)
+        return loss_sum / torch.clamp(denom, min=1.0)
+
+    def loss(self, params, batch):
+        """(loss, {"xent", "aux"}): the mean masked next-token cross-entropy
+        (``aux`` is 0: no MoE in this family yet)."""
+        h, aux = self.forward(params, batch)
+        loss = self._xent(params, h, batch)
+        return loss, {"xent": loss, "aux": aux}
 
     # ------------------------------------------------------------ serving
     def cache_shape(self, batch_size: int, cache_len: int) -> dict:

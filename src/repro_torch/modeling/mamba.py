@@ -10,7 +10,9 @@ kernel (K6) once per layer.
 As in ``lm.py``, ``decode_step`` updates the cache in place (the SSD state
 and the conv window of each layer, and ``cache["pos"]``): on the card a
 serving executor replays the step from a CUDA graph over static buffers.
-``prefill`` ignores ``cache_len``, as the reference does.
+``prefill`` ignores ``cache_len``, as the reference does. ``loss`` is
+``LM.loss``, inherited as in the reference; on the card a training step
+raises at K6, which has no backward kernel yet.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.modeling.layers import apply_norm, norm_specs
-from repro_torch.modeling.lm import LM, logits_f32
+from repro_torch.modeling.lm import LM, _maybe_remat, logits_f32
 from repro_torch.modeling.module import (
     ParamSpec,
     layer_slice,
+    layer_slices,
     prefix_specs,
     stacked,
     subtree,
@@ -72,8 +75,9 @@ class MambaLM(LM):
         return t.to(self.dtype)
 
     def _trunk(self, params, x, cache=None):
-        """The layer loop. Prefill and forward (``cache`` None) return the
-        per-layer (state, conv window); decode updates ``cache`` in place."""
+        """The layer loop of prefill and decode. Prefill (``cache`` None)
+        returns the per-layer (state, conv window); decode updates ``cache``
+        in place."""
         cfg = self.cfg
         layers = subtree(params, "layers")
         out = []
@@ -88,9 +92,20 @@ class MambaLM(LM):
             out.append((st, cv))
         return apply_norm(cfg.norm, x, params, "ln_f"), out
 
+    def _train_layer(self, p, x):
+        h = apply_norm(self.cfg.norm, x, p, "ln")
+        y, _, _ = ssd_block_apply(self.cfg, subtree(p, "mixer"), h,
+                                  impl=self.cfg.attn_impl)
+        return x + y
+
     def forward(self, params, batch):
-        """Scoring forward: returns (hidden (B, S, D), aux_loss = 0)."""
-        x, _ = self._trunk(params, self._embed(params, batch["tokens"]))
+        """Training/scoring forward: returns (hidden (B, S, D), aux_loss =
+        0); ``cfg.remat`` checkpoints each layer."""
+        x = self._embed(params, batch["tokens"])
+        layer = _maybe_remat(self._train_layer, self.cfg.remat)
+        for p in layer_slices(subtree(params, "layers")):
+            x = layer(p, x)
+        x = apply_norm(self.cfg.norm, x, params, "ln_f")
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------ serving

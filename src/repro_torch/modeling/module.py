@@ -126,3 +126,15 @@ def subtree(params: dict, prefix: str) -> dict:
 def layer_slice(stacked_params: dict, i: int) -> dict:
     """Layer ``i`` of a stacked param subtree (views, no copies)."""
     return {k: v[i] for k, v in stacked_params.items()}
+
+
+def layer_slices(stacked_params: dict) -> list[dict]:
+    """Every layer's params of a stacked subtree at once, for a training
+    pass: one ``unbind`` per stacked tensor, whose backward writes the
+    layers' gradients into one stacked gradient. (Indexing one layer at a
+    time, ``layer_slice``, would make each layer's gradient a full-size
+    zero tensor with its slice filled, and add those: for llama3.2-1b 16
+    fills and 15 adds of 3.9 GB per step.)"""
+    parts = {k: v.unbind(0) for k, v in stacked_params.items()}
+    n = len(next(iter(parts.values()))) if parts else 0
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]

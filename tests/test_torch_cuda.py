@@ -1746,3 +1746,210 @@ def test_trace_capture_and_replay_on_card(cuda_device, tmp_path):
                 "predicted_latency_ms", "completion_ms"):
         assert np.array_equal(getattr(rep.records, col),
                               getattr(res.records, col)), col
+
+
+# ------------------------------------------------------- K4b and training
+K4B_CASES = [  # (B, H, Hkv, S, D, causal, window)
+    (2, 32, 8, 2048, 64, True, 0),       # llama3.2-1b's training attention
+    (1, 16, 1, 4096, 256, True, 2048),   # recurrentgemma-9b's
+    (1, 4, 2, 1000, 64, True, 0),        # ragged: S not a tile multiple
+    (2, 6, 3, 77, 80, True, 24), (1, 4, 1, 45, 16, False, 0),
+    (1, 2, 2, 33, 1, False, 7), (1, 4, 4, 130, 256, True, 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K4B_CASES, ids=str)
+def test_flash_attention_bwd_on_card(cuda_device, case, dtype):
+    """K4b against its plain version on the card, at ``chip_smoke.py``'s
+    training shapes and ragged ones: float32 within K4B_F32_TOL of max(1,
+    |grad|), bf16 each row within K4B_ROW_TOL of its largest |grad|
+    (``chip_smoke.py``'s limits); one count per call."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
+        flash_attention_bwd_plain,
+    )
+
+    B, H, Hkv, S, D, causal, window = case
+    g = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q, o_like, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+                       .to(dtype) for shape in ((B, H, S, D), (B, H, S, D),
+                                                (B, Hkv, S, D), (B, Hkv, S, D)))
+    kw = dict(causal=causal, window=window)
+    o = flash_attention_bhsd(q, k, v, **kw)
+    before = flash_attention_bwd_bhsd.launches
+    got = flash_attention_bwd_bhsd(q, k, v, o, o_like, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, o_like, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_bhsd.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+    if dtype == torch.float32:
+        assert SMOKE.k4b_f32_err(got, want) <= SMOKE.K4B_F32_TOL, case
+    else:
+        assert SMOKE.k4b_row_err(got, want) <= SMOKE.K4B_ROW_TOL, case
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_strided_and_deterministic_on_card(cuda_device):
+    """Through ``FlashAttentionFn`` in the model's (B, S, H, D) layout (the
+    kernels read and write transposed views) the gradients equal the
+    kernel's on contiguous copies, and a second backward gives the same
+    bits (no atomics)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
+    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+               for shape in ((2, 300, 8, 64), (2, 300, 2, 64),
+                             (2, 300, 2, 64)))
+    do = torch.randn((2, 300, 8, 64), generator=g, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash_attention(*xs, causal=True, window=100).backward(do)
+        runs.append([x.grad for x in xs])
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    o = flash_attention_bhsd(qt, kt, vt, causal=True, window=100)
+    want = flash_attention_bwd_bhsd(qt, kt, vt, o, dot, causal=True,
+                                    window=100)
+    for a, b, w in zip(*runs, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a, w.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_autograd_on_card(cuda_device):
+    """No gradient is dropped silently: ``loss.backward()`` through K4 gives
+    the plain version's gradients (its Function's backward is K4b), and K3,
+    K5 and K6, which have no backward kernel yet, raise before launching.
+    Under ``no_grad`` they launch as before."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_bhd,
+    )
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_bsd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhsd
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g, device=dev).requires_grad_(True)
+
+    q, k, v = leaf(1, 4, 40, 16), leaf(1, 2, 40, 16), leaf(1, 2, 40, 16)
+    before = kernels.launch_counts()
+    flash_attention_bhsd(q, k, v, causal=True).square().sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == before["flash_attention"] + 1
+    assert counts["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    for t in (q, k, v):
+        t.grad = None
+    flash_attention_plain(q, k, v, causal=True).square().sum().backward()
+    for a, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(a, t.grad, rtol=1e-4, atol=1e-5)
+
+    x, a = leaf(1, 8, 4), torch.rand((1, 8, 4), device=dev)
+    lengths = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    dq = leaf(1, 4, 1, 16)
+    sx, sdt = leaf(1, 2, 8, 4), torch.rand((1, 2, 8), device=dev)
+    sA, sB = -torch.ones(2, device=dev), torch.randn((1, 8, 3), device=dev)
+    calls = {"linear_scan": lambda: linear_scan_bsd(x, a),
+             "decode_attention": lambda: decode_attention_bhd(
+                 dq, k.detach(), v.detach(), lengths),
+             "ssd_scan": lambda: ssd_scan_bhsd(sx, sdt, sA, sB, sB)}
+    for name, call in calls.items():
+        n = kernels.launch_counts()[name]
+        with pytest.raises(NotImplementedError, match=name):
+            call()
+        assert kernels.launch_counts()[name] == n  # nothing launched
+        with torch.no_grad():
+            call()
+        assert kernels.launch_counts()[name] == n + 1
+
+
+@pytest.mark.cuda
+def test_checkpoint_recompute_relaunches_k4_on_card(cuda_device):
+    """Under ``torch.utils.checkpoint`` the backward pass recomputes the
+    forward through ``FlashAttentionFn`` again: K4 twice, K4b once, and the
+    same gradients as without the checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16)
+               for shape in ((1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)))
+
+    def grads(remat):
+        # the wrappers' own counts: autograd runs a CUDA backward (and the
+        # recompute in it) on its device thread, which a ``recording``
+        # block of this thread does not see
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = kernels.launch_counts()
+        out = checkpoint(flash_attention, *xs, use_reentrant=False) \
+            if remat else flash_attention(*xs)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        tally = {name: n - before[name]
+                 for name, n in kernels.launch_counts().items()
+                 if n != before[name]}
+        return [x.grad for x in xs], tally
+
+    plain, t_plain = grads(False)
+    remat, t_remat = grads(True)
+    assert t_plain == {"flash_attention": 1, "flash_attention_bwd": 1}
+    assert t_remat == {"flash_attention": 2, "flash_attention_bwd": 1}
+    for a, b in zip(plain, remat):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_float32_train_step_card_matches_cpu(cuda_device):
+    """One float32 step of the smoke llama (remat "full") on the card and
+    on the CPU from the same parameters and batch: loss and every gradient
+    within 1e-4 of its scale, then the same AdamW update."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = smoke_config("llama3.2-1b").with_updates(remat="full")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = {k: t.to(cuda_device).requires_grad_(True) for k, t in cpu.items()}
+    for t in cpu.values():
+        t.requires_grad_(True)
+    batch = make_pipeline(cfg, seq_len=64, global_batch=2, seed=0).batch(0)
+    kernels.reset_launch_counts()
+    (loss_d, _), g_d = _value_and_grad(model, card, {
+        k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()})
+    (loss_c, _), g_c = _value_and_grad(
+        model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == {
+        "flash_attention": 2 * cfg.n_layers,
+        "flash_attention_bwd": cfg.n_layers}
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    for k in g_c:
+        err = float((g_d[k].cpu() - g_c[k]).abs().max())
+        assert err <= 1e-4 * float(g_c[k].abs().max().clamp_min(1e-30)), k
+    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1)
+    opt.adamw_update(card, g_d, opt.init_opt_state(card), ocfg)
+    opt.adamw_update(cpu, g_c, opt.init_opt_state(cpu), ocfg)
+    for k in cpu:
+        # an update moves a parameter by at most ~lr (1e-3): a sign that
+        # differs on a gradient at float32 noise moves it by 2 lr
+        assert float((card[k].detach().cpu() - cpu[k].detach()).abs()
+                     .max()) <= 2.1e-3, k

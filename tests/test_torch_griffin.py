@@ -397,7 +397,25 @@ def test_griffin_param_specs_and_count_mirror_reference():
     assert build_model(get_config(ARCH)).param_count() == 10_444_984_320
 
 
-def test_griffin_loss_waits_for_the_training_slice():
-    model = build_model(smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.loss({}, {})
+def test_griffin_loss_matches_reference(rng):
+    """``GriffinLM.loss`` (once a ``NotImplementedError``) against the JAX
+    model's: the value and every parameter's gradient within 1e-4, on a
+    prompt past the window (``tests/test_torch_training.py`` holds every
+    family's loss under both remat settings)."""
+    jmodel, jparams, model, params = _carried(seed=2)
+    cfg = model.cfg
+    toks = rng.integers(0, cfg.vocab, size=(2, 21)).astype(np.int32)
+    tgts = rng.integers(0, cfg.vocab, size=(2, 21)).astype(np.int32)
+    (jl, jm), jg = jax.value_and_grad(jmodel.loss, has_aux=True)(
+        jparams, {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgts)})
+    for t in params.values():
+        t.requires_grad_(True)
+    loss, met = model.loss(params, {"tokens": torch.as_tensor(toks),
+                                    "targets": torch.as_tensor(tgts)})
+    keys = sorted(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in keys])
+    assert set(met) == set(jm) == {"xent"}
+    np.testing.assert_allclose(float(loss), float(jl), rtol=LM_TOL)
+    for k, g in zip(keys, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg[k]), atol=LM_TOL,
+                                   err_msg=k)

@@ -78,6 +78,9 @@ def test_import_needs_no_triton_and_no_cuda():
         "import repro_torch.core, repro_torch.core.multiapp\n"
         "import repro_torch.core.simulator, repro_torch.trace\n"
         "import repro_torch.planner\n"
+        "import repro_torch.modeling.losses, repro_torch.launch.train\n"
+        "import repro_torch.training.train_loop\n"
+        "import repro_torch.distributed.compression\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'repro')]\n"
         "assert not bad, bad\n"
@@ -94,15 +97,16 @@ def test_import_needs_no_triton_and_no_cuda():
 
 @pytest.mark.parametrize("name", ["gbrt_predict", "linear_scan",
                                   "state_replay", "flash_attention",
-                                  "decode_attention", "ssd_scan"])
+                                  "flash_attention_bwd", "decode_attention",
+                                  "ssd_scan"])
 def test_nvcc_flags_per_source(name, monkeypatch):
     """Every source keeps -fmad=false (its parity with the plain version
-    rests on no contracted multiply-add) except the two attention kernels,
-    whose softmax wants its FMAs; the library's hash covers the flags, so a
-    changed flag rebuilds."""
+    rests on no contracted multiply-add) except the attention kernels,
+    whose softmax and dot products want their FMAs; the library's hash
+    covers the flags, so a changed flag rebuilds."""
     from repro_torch.kernels import _build
 
-    fmad = ("flash_attention", "decode_attention")
+    fmad = ("flash_attention", "flash_attention_bwd", "decode_attention")
     assert name in _build.SOURCES
     flags = _build.flags(name)
     assert ("-fmad=false" in flags) == (name not in fmad)
@@ -233,7 +237,10 @@ def test_cpu_tensors_launch_no_kernel(rng):
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_bhd,
     )
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
+    )
     from repro_torch.kernels.gbrt_predict.ops import (
         gbrt_predict,
         gbrt_predict_configs,
@@ -265,6 +272,7 @@ def test_cpu_tensors_launch_no_kernel(rng):
                minlat=False, deadline=1.0)
     q = torch.ones((1, 2, 4, 8))
     flash_attention_bhsd(q, q[:, :1], q[:, :1])
+    flash_attention_bwd_bhsd(q, q[:, :1], q[:, :1], q, q)
     decode_attention_bhd(q[:, :, :1], q[:, :1], q[:, :1],
                          torch.tensor([3], dtype=torch.int32))
     ssd(torch.ones((1, 6, 2, 4)), torch.ones((1, 6, 2)), -torch.ones(2),
@@ -272,7 +280,8 @@ def test_cpu_tensors_launch_no_kernel(rng):
     counts = kernels.launch_counts()
     assert set(counts) == {"gbrt_predict_multi", "gbrt_predict_blocked",
                            "linear_scan", "state_replay", "state_walk",
-                           "flash_attention", "decode_attention", "ssd_scan"}
+                           "flash_attention", "flash_attention_bwd",
+                           "decode_attention", "ssd_scan"}
     assert set(counts.values()) == {0}
     assert np.isfinite(gbrt_predict(m, torch.as_tensor(x)).numpy()).all()
 
