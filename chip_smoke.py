@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the ptxas resource lines; count the tensor-core instructions
    (``HMMA``/``HGMMA``) per kernel in the built ``flash_attention`` and
    ``decode_attention`` libraries' SASS (``cuobjdump -sass``), failing if
-   either bf16 kernel has none;
+   either bf16 kernel has none, and in ``flash_attention_bwd``'s, failing
+   if K4b's bf16 dk/dv or dq kernel (``fa_bwd_dkdv_tc``, ``fa_bwd_dq_tc``)
+   has none;
 2. hold each kernel against its plain PyTorch version at the shapes its main
    path gives it: the GBRT kernels (K1 multi-config, K2 blocked; each a step
    table built on the card per call, then a lookup) bit-equal in float64 and
@@ -164,26 +166,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (1, 32, 32, 8, 64) causal, after the live serves in this process: every
    output must have the same bits (recorded in K4's row with each side's
    distance from a float64 softmax);
-7. train (the training slice): K4b (``flash_attention_bwd``) against its
-   plain version at llama3.2-1b's training attention (q (2, 32, 2048, 64),
-   8 KV heads, causal, bf16) and recurrentgemma-9b's (q (1, 16, 4096,
-   256), one KV head, window 2048, bf16 and float32): float32 within 5e-5
-   of max(1, |grad|), bf16 each row within 2^-6 of its largest |grad|,
-   and three planted faults (``delta`` dropped, the window's edge off by
-   one, one GQA head left out of dK) must each break the bf16 limit; its
-   time, its plain version's, SDPA's forward + backward less its forward
-   (``library_ms``) and its bound (the recompute of S and four products).
-   Then one float32 training step of llama3.2-1b at full width and 2
-   layers on the card against the CPU (loss, global grad norm, every
-   gradient, the AdamW update); the slice, llama3.2-1b at full width and
-   depth trained 10 steps through ``train()`` in bf16 with float32 master
-   parameters and ``remat="full"`` at B=2, S=2048, counts zeroed just
-   before and read just after (K4 32 and K4b 16 launches a step, losses
-   finite; median step ms, tokens/s, peak memory, one step's device time
-   by kind of kernel); and on the ``examples/train_100m_torch.py``
-   configuration two runs from one seed (equal losses) and a run killed
-   at step 6 and restarted from its checkpoint (within rtol 1e-5 of the
-   uninterrupted run);
+7. train (the training slice): K4b (``flash_attention_bwd``), fed the
+   row log-sum-exp K4 writes (itself held to the plain version's within
+   ``LSE_TOL``), against its plain version at llama3.2-1b's training
+   attention (q (2, 32, 2048, 64), 8 KV heads, causal) and
+   recurrentgemma-9b's (q (1, 16, 4096, 256), one KV head, window 2048),
+   each in bf16 and float32: float32 within 5e-5 of max(1, |grad|), bf16
+   each row within 2^-6 of its largest |grad|, and three planted faults
+   (``delta`` dropped, the window's edge off by one, one GQA head left out
+   of dK) must each break the bf16 limit; its time, achieved TFLOP/s (the
+   five products of the work, ``tflops``, and the seven it runs,
+   ``run_tflops``), its head split, its plain version's time, SDPA's
+   forward + backward
+   less its forward (``library_ms``) and its bound (the recompute of S and
+   four products). Then one float32 training step of llama3.2-1b at full
+   width and 2 layers on the card against the CPU (loss, global grad norm,
+   every gradient, the AdamW update); the slice, llama3.2-1b at full width
+   and depth trained 10 steps through ``train()`` in bf16 with float32
+   master parameters and ``remat="full"`` at B=2, S=2048 (K4 32 and K4b 16
+   launches a step, losses finite; median step ms, tokens/s, peak memory,
+   one step's device time by kind of kernel, K4b's by kernel); and on the
+   ``examples/train_100m_torch.py`` configuration two runs from one seed
+   (equal losses) and a run killed at step 6 and restarted from its
+   checkpoint (within rtol 1e-5 of the uninterrupted run). This phase
+   reads its launches from ``kernels.recording()`` blocks around each step
+   (the float32 step, the slice's 10 steps and each profiled step), which
+   see K4b and the remat's K4 though autograd launches them on its own
+   device thread;
 8. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
    line (K1-K6, K4b, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -291,6 +300,13 @@ LIVE_KERNELS = {ARCH: ("flash_attention", "decode_attention"),
 # (the first causal query's dq: float32 noise on both sides)
 TRAIN_ATTN, GRIFFIN_ATTN = (2, 32, 8, 2048, 64), (1, 16, 1, 4096, 256)
 K4B_F32_TOL, K4B_ROW_TOL, K4B_ROW_FLOOR = 5e-5, 2.0 ** -6, 2.0 ** -12
+# K4's row log-sum-exp (natural log of the scaled scores) against the plain
+# version's on the same inputs: both float32 over the same float32 scores
+# (bf16 operands are exact in float32), differing in summation order and
+# K4's exp2 approximation (2 ulp) over at most a few thousand terms, and
+# in the bf16 kernel's log2-unit running max; lse is ~1-20 here, where
+# float32 rounds at ~1e-6
+LSE_TOL = 1e-4
 # (b) the float32 step of llama3.2-1b at full width, cut to 2 layers (the
 # CPU's step at full depth would take minutes), card vs CPU: loss and
 # global grad norm within FULL_WIDTH_TOL, every gradient's max |diff|
@@ -415,15 +431,18 @@ def phase_build() -> tuple[dict, dict]:
                 log(f"[build] {name}: {line.strip()}")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = {}
-    for lib, tc_kernel in (("flash_attention", "fa_tc_kernel"),
-                           ("decode_attention", "dec_tc_kernel")):
+    for lib, tc_kernels in (("flash_attention", ("fa_tc_kernel",)),
+                            ("decode_attention", ("dec_tc_kernel",)),
+                            ("flash_attention_bwd", ("fa_bwd_dkdv_tc",
+                                                     "fa_bwd_dq_tc"))):
         sass[lib] = tensor_core_counts(_build.lib_path(lib), cuobjdump)
         log(f"[build] {lib} tensor-core instructions per kernel: "
             f"{json.dumps(sass[lib])}")
-        tc = {k: n for k, n in sass[lib].items() if tc_kernel in k}
-        if not tc or min(tc.values()) <= 0:
-            fail(f"the bf16 {lib} kernel runs no tensor-core instruction: "
-                 f"{sass[lib]}")
+        for tc_kernel in tc_kernels:
+            tc = {k: n for k, n in sass[lib].items() if tc_kernel in k}
+            if not tc or min(tc.values()) <= 0:
+                fail(f"the bf16 {lib} kernel {tc_kernel} runs no "
+                     f"tensor-core instruction: {sass[lib]}")
     return ({"total": round(secs, 2),
              **{n: round(r["seconds"], 2) for n, r in report.items()}}, sass)
 
@@ -2353,18 +2372,22 @@ def k4b_f32_err(got, want) -> float:
 
 
 def k4b_case(shape, dtype, dev, causal, window, reps, faults=()):
-    """K4b against its plain version at one shape (B, H, Hkv, S, D), with
-    the planted faults of ``faults`` (bf16), its time, its plain version's
-    and SDPA's forward + backward less its forward."""
+    """K4b against its plain version at one shape (B, H, Hkv, S, D), fed the
+    lse K4 writes (held to the plain version's), with the planted faults of
+    ``faults`` (bf16), its time and TFLOP/s, its kernels' device time, its
+    plain version's time and SDPA's forward + backward less its
+    forward."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
         _mask,
+        bwd_splits,
         flash_attention_bhsd,
         flash_attention_bwd_bhsd,
         flash_attention_bwd_plain,
+        flash_attention_plain,
     )
 
     B, H, Hkv, S, D = shape
@@ -2372,18 +2395,27 @@ def k4b_case(shape, dtype, dev, causal, window, reps, faults=()):
     g = torch.as_tensor(np.random.default_rng(D).normal(size=(B, H, S, D)),
                         dtype=dtype).to(dev)
     kw = dict(causal=causal, window=window)
-    o = flash_attention_bhsd(q, k, v, **kw)  # what FlashAttentionFn saves
-    got = flash_attention_bwd_bhsd(q, k, v, o, g, **kw)
+    # what FlashAttentionFn saves: K4's output and its row log-sum-exp
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    o = flash_attention_bhsd(q, k, v, lse=lse, **kw)
+    _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_bhsd(q, k, v, o, g, lse=lse, **kw)
     want = flash_attention_bwd_plain(q, k, v, o, g, **kw)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
-    res = {"err": max(max_err(a, b) for a, b in zip(got, want))}
+    res = {"err": max(max_err(a, b) for a, b in zip(got, want)),
+           "lse_err": max_err(lse, want_lse)}
+    del want_lse
+    if not res["lse_err"] <= LSE_TOL:
+        fail(f"K4's lse {shape} {name} window={window} differs from the "
+             f"plain version's by {res['lse_err']}")
     if dtype == torch.float32:
         res["rel_err"] = k4b_f32_err(got, want)
         if res["rel_err"] > K4B_F32_TOL:
             fail(f"K4b {shape} float32 window={window} differs from its "
                  f"plain version by {res['rel_err']} of max(1, |grad|)")
     else:
+        res["nsplit"] = bwd_splits(B, Hkv, S, H // Hkv)
         res["row_err"] = k4b_row_err(got, want)
         if res["row_err"] > K4B_ROW_TOL:
             fail(f"K4b {shape} bf16 window={window}: a row differs from the "
@@ -2408,17 +2440,24 @@ def k4b_case(shape, dtype, dev, causal, window, reps, faults=()):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), xs, g)
 
+    def kernel():
+        flash_attention_bwd_bhsd(q, k, v, o, g, lse=lse, **kw)
+
+    product = 2.0 * B * H * pairs * D  # one product over the live pairs
     res.update(
-        ms=cuda_ms(lambda: flash_attention_bwd_bhsd(q, k, v, o, g, **kw), reps),
+        ms=cuda_ms(kernel, reps),
         plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, g, **kw),
                          2),
         library_ms=cuda_ms(sdpa_fwd_bwd, reps) - cuda_ms(sdpa_fwd, reps),
-        k4_ms=cuda_ms(lambda: flash_attention_bhsd(q, k, v, **kw), reps),
+        k4_ms=cuda_ms(lambda: flash_attention_bhsd(q, k, v, lse=lse, **kw),
+                      reps),
         # q, k, v, o and g read once, dq, dk and dv written once; the
         # recompute of S and four products (dP, dV, dQ, dK) on the pairs
         # the mask leaves live
         nbytes=q.element_size() * (4 * q.numel() + 4 * k.numel()),
-        ops=5 * 2.0 * B * H * pairs * D, dtype=name)
+        ops=5 * product, dtype=name)
+    res["tflops"] = res["ops"] / res["ms"] / 1e9
+    res["run_tflops"] = 7 * product / res["ms"] / 1e9  # S and dP twice
     res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["ops"], name)
     log(f"[k4b] {shape} {name} causal={causal} window={window}: "
         f"{json.dumps(res)}")
@@ -2449,12 +2488,11 @@ def train_step_check(dev) -> dict:
         t.requires_grad_(True)
     batch = make_pipeline(cfg, seq_len=STEP_S, global_batch=STEP_B,
                           seed=0).batch(0)
-    kernels.reset_launch_counts()
-    (loss_d, _), g_d = _value_and_grad(
-        model, card, {k: torch.as_tensor(v, device=dev)
-                      for k, v in batch.items()})
-    torch.cuda.synchronize()
-    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    with kernels.recording() as launches:
+        (loss_d, _), g_d = _value_and_grad(
+            model, card, {k: torch.as_tensor(v, device=dev)
+                          for k, v in batch.items()})
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     (loss_c, _), g_c = _value_and_grad(
         model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
@@ -2498,35 +2536,44 @@ def train_step_check(dev) -> dict:
     return res
 
 
-def step_split(model, params, batch, opt_cfg) -> dict:
+def step_split(model, params, batch, opt_cfg, want) -> dict:
     """Device ms of one training step of the slice by kind of kernel
-    (``torch.profiler``): matmuls (cuBLAS), K4, K4b, and everything else;
-    and the loss (chunked cross-entropy forward + backward on the final
-    hidden states) and AdamW (clip + update) timed apart."""
+    (``torch.profiler``): matmuls (cuBLAS), K4, K4b (and each of K4b's
+    kernels, ``k4b_kernels``), and everything else; and the loss (chunked
+    cross-entropy forward + backward on the final hidden states) and AdamW
+    (clip + update) timed apart. Each step runs in a ``recording()`` block,
+    whose launches must be ``want``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
     from repro_torch.training.optimizer import adamw_update, init_opt_state
     from repro_torch.training.train_loop import _value_and_grad
 
     def step():
-        _, grads = _value_and_grad(model, params, batch)
-        adamw_update(params, grads, state, opt_cfg)
+        with kernels.recording() as launches:
+            _, grads = _value_and_grad(model, params, batch)
+            adamw_update(params, grads, state, opt_cfg)
+            torch.cuda.synchronize()
+        if launches != want:
+            fail(f"a step of the slice launched {launches}, expected "
+                 f"{want}")
 
     state = init_opt_state(params)
     torch.cuda.synchronize()
     step()  # warm
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
-        torch.cuda.synchronize()
     split = {"matmul": 0.0, "k4": 0.0, "k4b": 0.0, "other": 0.0}
-    others = {}
+    others, k4b = {}, {}
     for e in prof.key_averages():
         ms = getattr(e, "device_time_total", 0.0) / 1e3
         key = e.key.lower()
         if "fa_bwd" in key:
             split["k4b"] += ms
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            name = name.split("(")[0]
+            k4b[name] = k4b.get(name, 0.0) + ms
         elif "fa_tc_kernel" in key or "fa_f32_kernel" in key:
             split["k4"] += ms
         elif any(w in key for w in ("gemm", "xmma", "cutlass", "cublas",
@@ -2538,6 +2585,7 @@ def step_split(model, params, batch, opt_cfg) -> dict:
     if not sum(split.values()):
         fail("torch.profiler recorded no device time")
     split["total"] = sum(split.values())
+    split["k4b_kernels"] = k4b
     split["top_other"] = dict(sorted(others.items(),
                                      key=lambda kv: -kv[1])[:8])
     with torch.no_grad():
@@ -2555,8 +2603,8 @@ def step_split(model, params, batch, opt_cfg) -> dict:
 def slice_run(dev) -> dict:
     """The slice: llama3.2-1b at full width and depth, bf16 compute,
     float32 master parameters, remat "full", TRAIN_STEPS steps of
-    (TRAIN_B, TRAIN_S) through ``train()``; launch counts zeroed just before
-    and read just after."""
+    (TRAIN_B, TRAIN_S) through ``train()`` inside one ``recording()``
+    block, whose launches are the slice's."""
     import numpy as np
     import torch
 
@@ -2576,10 +2624,9 @@ def slice_run(dev) -> dict:
     ocfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
                            decay_steps=TRAIN_STEPS)
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    res = train(model, pipe, LoopConfig(steps=TRAIN_STEPS, log_every=1),
-                ocfg, seed=0, device=dev, log=log)
-    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    with kernels.recording() as launches:
+        res = train(model, pipe, LoopConfig(steps=TRAIN_STEPS, log_every=1),
+                    ocfg, seed=0, device=dev, log=log)
     peak = torch.cuda.max_memory_allocated()
     step_ms = float(np.median(res.step_s)) * 1e3
     out = {"params": model.param_count(), "steps": TRAIN_STEPS,
@@ -2606,7 +2653,7 @@ def slice_run(dev) -> dict:
         p.requires_grad_(True)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in pipe.batch(0).items()}
-    out["split_ms"] = step_split(model, params, batch, ocfg)
+    out["split_ms"] = step_split(model, params, batch, ocfg, want)
     log(f"[train] (c) one step's device ms by kind: "
         f"{json.dumps(out['split_ms'])}")
     del params, batch
@@ -2684,11 +2731,12 @@ def phase_train(dev, card) -> dict:
     torch.cuda.empty_cache()
     log(f"[train] {card}")
     bf16, f32 = torch.bfloat16, torch.float32
-    llama = k4b_case(TRAIN_ATTN, bf16, dev, True, 0, 5, ("delta", "gqa"))
-    griffin = {"griffin_s4096": k4b_case(GRIFFIN_ATTN, bf16, dev, True, WINDOW,
-                                         2, ("delta", "window", "gqa")),
-               "griffin_s4096_f32": k4b_case(GRIFFIN_ATTN, f32, dev, True,
-                                             WINDOW, 2)}
+    llama = k4b_case(TRAIN_ATTN, bf16, dev, True, 0, 10, ("delta", "gqa"))
+    others = {"f32": k4b_case(TRAIN_ATTN, f32, dev, True, 0, 2),
+              "griffin_s4096": k4b_case(GRIFFIN_ATTN, bf16, dev, True, WINDOW,
+                                        5, ("delta", "window", "gqa")),
+              "griffin_s4096_f32": k4b_case(GRIFFIN_ATTN, f32, dev, True,
+                                            WINDOW, 2)}
     step = train_step_check(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2696,17 +2744,19 @@ def phase_train(dev, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     rs = restart_check(dev)
-    extra = {"row_err": llama["row_err"], "row_tol": K4B_ROW_TOL,
-             "row_floor": K4B_ROW_FLOOR, "fault_row_err": llama["fault_row_err"],
-             "k4_ms": llama["k4_ms"], "f32_tol": K4B_F32_TOL}
-    for tag, c in griffin.items():
+    extra = {key: llama[key] for key in
+             ("row_err", "fault_row_err", "k4_ms", "lse_err", "nsplit",
+              "tflops", "run_tflops")}
+    extra.update(row_tol=K4B_ROW_TOL, row_floor=K4B_ROW_FLOOR,
+                 f32_tol=K4B_F32_TOL, lse_tol=LSE_TOL)
+    for tag, c in others.items():
         extra.update({f"{tag}_{key}": c[key] for key in
                       ("ms", "plain_ms", "library_ms", "err", "bound_ms",
-                       "bound_by", "k4_ms") if key in c})
-        for key in ("row_err", "rel_err", "fault_row_err"):
-            if key in c:
-                extra[f"{tag}_{key}"] = c[key]
+                       "bound_by", "k4_ms", "lse_err", "tflops", "run_tflops",
+                       "nsplit", "row_err", "rel_err", "fault_row_err")
+                      if key in c})
     extra["train_median_step_ms"] = sl["median_step_ms"]
+    extra["train_step_k4b_ms"] = sl["split_ms"]["k4b_kernels"]
     extra["train_launches_per_step"] = sl["per_step"]["flash_attention_bwd"]
     k4b = row("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2715,9 +2765,10 @@ def phase_train(dev, card) -> dict:
               llama["ms"], llama["plain_ms"], llama["err"], llama["nbytes"],
               llama["ops"], "bfloat16", library_ms=llama["library_ms"],
               shape="q/o/do (2, 32, 2048, 64) k/v (2, 8, 2048, 64) bf16 "
-                    "causal (llama3.2-1b's training step); griffin_s4096: "
-                    "q (1, 16, 4096, 256) k/v (1, 1, 4096, 256) causal, "
-                    "window 2048 (recurrentgemma-9b), bf16 and float32",
+                    "causal (llama3.2-1b's training step; f32: the same in "
+                    "float32); griffin_s4096: q (1, 16, 4096, 256) k/v "
+                    "(1, 1, 4096, 256) causal, window 2048 "
+                    "(recurrentgemma-9b), bf16 and float32",
               **extra)
     return {"row": k4b, "launches": sl["launches"], "step": step,
             "slice": sl, "restart": rs}

@@ -48,39 +48,36 @@
 // tensor cores' TF32 would break. What bounds it: the shared-memory reads of
 // the scalar dot products.
 //
-// This file is built without -fmad=false (the only one): the softmax's
-// scale and shift are one FMA by design, and the float32 kernel's parity is
-// a tolerance, not bit-equality.
+// Row statistics: given a non-null `lse` (float32, element (b, h, i) at
+// b * lse_sb + h * lse_sh + i), both kernels also write each row's
+// log-sum-exp of its visible scaled scores in natural-log units,
+// lse = log(sum_j exp(scale * q_i . k_j)) (the plain version's
+// `return_lse`; the bf16 kernel's log2-unit running max is converted at the
+// end), and +inf for a row with no visible key, so that every
+// exp(scale * s - lse) of such a row is exactly 0. K4b reads it for its P.
+// With a null `lse` nothing else changes (the serving path passes null).
+//
+// The tensor-core helpers (staging, swizzle, ldmatrix, mma.sync) are in
+// fa_mma.cuh, shared with the backward. This file is built without
+// -fmad=false (as flash_attention_bwd.cu and decode_attention.cu are): the
+// softmax's scale and shift are one FMA by design, and the float32 kernel's
+// parity is a tolerance, not bit-equality.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "fa_mma.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -2.0e38f;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_DEVICES = 64;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long q[3], k[3], v[3], o[3];  // (batch, head, seq) element strides
+  long long lse[2];                  // (batch, head) of lse, when given
 };
-
-// Dynamic shared memory above 48 KB needs an opt-in, which holds per device:
-// each kernel instantiation remembers it per device, for its largest size.
-template <typename Kernel>
-cudaError_t opt_in(Kernel* kernel, size_t max_smem, bool (&done)[MAX_DEVICES]) {
-  if (max_smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)max_smem);
-  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return e;
-}
 
 // ================================================== float32: CUDA cores
 constexpr int WARPS = 4;
@@ -110,8 +107,9 @@ size_t f32_smem(int D) {
 template <int DPL>
 __global__ void __launch_bounds__(THREADS)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H, int Hkv, int Sq,
-              int Skv, int D, Strides st, int causal, int window, float scale) {
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int H, int Hkv, int Sq, int Skv, int D, Strides st, int causal, int window,
+              float scale) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* qs = smem;              // BQ x D
@@ -200,6 +198,8 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < ROWS; ++r) {
     const int qpos = q0 + warp * ROWS + r;
     if (qpos >= Sq) continue;
+    if (lse != nullptr && lane == 0)  // m and l are the same in every lane
+      lse[b * st.lse[0] + h * st.lse[1] + qpos] = l[r] > 0.f ? m[r] + logf(l[r]) : CUDART_INF_F;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
@@ -210,120 +210,36 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DPL>
-int launch_f32(const float* q, const float* k, const float* v, float* o, int B, int H,
-               int Hkv, int Sq, int Skv, int D, const Strides& st, int causal, int window,
-               float scale, cudaStream_t stream) {
+int launch_f32(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+               int H, int Hkv, int Sq, int Skv, int D, const Strides& st, int causal,
+               int window, float scale, cudaStream_t stream) {
   static bool opted_in[MAX_DEVICES] = {};
   const cudaError_t e = opt_in(fa_f32_kernel<DPL>, f32_smem(32 * DPL), opted_in);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_f32_kernel<DPL><<<grid, THREADS, f32_smem(D), stream>>>(q, k, v, o, H, Hkv, Sq, Skv,
-                                                             D, st, causal, window, scale);
+  fa_f32_kernel<DPL><<<grid, THREADS, f32_smem(D), stream>>>(
+      q, k, v, o, lse, H, Hkv, Sq, Skv, D, st, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 // ================================================ bf16: tensor cores
-using bf16 = __nv_bfloat16;
 constexpr int TC_WARPS = 8;
 constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int TC_M = TC_WARPS * 16;  // packed (position, head) rows per block
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// element offset of 16-byte chunk c of row r in a tile of DP-wide rows: the
-// chunk index is XORed with the row's low 3 bits, so the 8 rows an ldmatrix
-// reads at one logical chunk fall in 8 distinct bank groups
-template <int DP>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * DP + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  // bytes == 0 fills the chunk with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Stage `rows` rows of DP bf16 into a swizzled tile: row r from src(r), the
-// first D elements live and the rest zero; a null src(r) is a zero row.
-// vec: D % 8 == 0 and every row 16-byte aligned, so cp.async moves 16-byte
-// chunks (zero-filled past D); otherwise elements are copied one by one.
-template <int DP, typename RowPtr>
-__device__ __forceinline__ void stage_rows(bf16* dst, int rows, int D, bool vec, RowPtr src,
-                                           const bf16* any) {
-  constexpr int CH = DP / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += TC_THREADS) {
-    const int r = i / CH, c = i % CH;
-    bf16* d = dst + swz<DP>(r, c);
-    const bf16* g = src(r);
-    const int live = g ? min(8, D - c * 8) : 0;
-    if (vec) {
-      cp_async16(smem_u32(d), live > 0 ? g + c * 8 : any, live > 0 ? 16 : 0);
-    } else {
-      unsigned e[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
-      for (int j = 0; j < live; ++j) e[j] = gs[c * 8 + j];
-      *reinterpret_cast<uint4*>(d) = make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16),
-                                                e[4] | (e[5] << 16), e[6] | (e[7] << 16));
-    }
-  }
-}
 
 template <int DP, int TK>
 size_t tc_smem() {  // Q, then K and V double-buffered
   return sizeof(bf16) * ((size_t)TC_M * DP + 4 * (size_t)TK * DP);
 }
 
-template <int DP, int TK>
+// LSE: write the rows' log-sum-exp (its own instantiation, so the serving
+// path's kernel, which writes none, carries none of its code or registers)
+template <int DP, int TK, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Hkv, int Sq,
-             int Skv, int D, Strides st, int causal, int window, float scale_log2, int vec) {
+             const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse, int H,
+             int Hkv, int Sq, int Skv, int D, Strides st, int causal, int window,
+             float scale_log2, int vec) {
   constexpr bool QREG = DP <= 128;  // Q fragments held in registers
   extern __shared__ uint4 smem_tc[];
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // TC_M x DP
@@ -339,7 +255,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * st.v[0] + hk * st.v[1];
 
   // packed row p: query head hk * G + p % G at position p / G
-  stage_rows<DP>(
+  stage_rows<DP, TC_THREADS>(
       qs, TC_M, D, vec,
       [&](int r) -> const bf16* {
         const int p = p0 + r;
@@ -389,13 +305,13 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage_kv = [&](int t, int buf) {
     const int k0 = t * TK;
-    stage_rows<DP>(
+    stage_rows<DP, TC_THREADS>(
         ks + buf * TK * DP, TK, D, vec,
         [&](int r) -> const bf16* {
           return k0 + r < Skv ? kp + (long long)(k0 + r) * st.k[2] : nullptr;
         },
         k);
-    stage_rows<DP>(
+    stage_rows<DP, TC_THREADS>(
         vs + buf * TK * DP, TK, D, vec,
         [&](int r) -> const bf16* {
           return k0 + r < Skv ? vp + (long long)(k0 + r) * st.v[2] : nullptr;
@@ -420,7 +336,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (t == t0) {
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          ldsm_x4(qf[kk], q_base + 2 * swz<DP>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+          ldsm_x4(qf[kk], frag_a<DP>(q_base, warp * 16, kk, lane));
       }
     }
     const int k0 = t * TK;
@@ -438,13 +354,12 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < 4; ++j) a[j] = qf[kk][j];
         } else {
-          ldsm_x4(a, q_base + 2 * swz<DP>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+          ldsm_x4(a, frag_a<DP>(q_base, warp * 16, kk, lane));
         }
 #pragma unroll
         for (int n2 = 0; n2 < TK / 16; ++n2) {
           uint32_t bk[4];
-          ldsm_x4(bk, k_base + 2 * swz<DP>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                           kk * 2 + ((lane >> 3) & 1)));
+          ldsm_x4(bk, frag_b<DP>(k_base, n2 * 16, kk, lane));
           mma_bf16(s[2 * n2], a, bk[0], bk[1]);
           mma_bf16(s[2 * n2 + 1], a, bk[2], bk[3]);
         }
@@ -508,8 +423,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int n2 = 0; n2 < DP / 16; ++n2) {
           uint32_t bv[4];
-          ldsm_x4_t(bv, v_base + 2 * swz<DP>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                             n2 * 2 + (lane >> 4)));
+          ldsm_x4_t(bv, frag_bt<DP>(v_base, kk, n2, lane));
           mma_bf16(acc[2 * n2], a, bv[0], bv[1]);
           mma_bf16(acc[2 * n2 + 1], a, bv[2], bv[3]);
         }
@@ -526,6 +440,10 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     li += __shfl_xor_sync(FULL, li, 2);
     const int p = p0 + warp * 16 + gq + 8 * i;
     if (p >= rows_total) continue;
+    // m is in log2 units; the quad's 4 threads hold the same m and l
+    if (LSE && tq == 0)
+      lse[b * st.lse[0] + (long long)(hk * G + p % G) * st.lse[1] + p / G] =
+          li > 0.f ? (m[i] + log2f(li)) * LN2 : CUDART_INF_F;
     const float inv = 1.f / fmaxf(li, 1e-30f);
     bf16* op = o + b * st.o[0] + (long long)(hk * G + p % G) * st.o[1] +
                (long long)(p / G) * st.o[2];
@@ -544,25 +462,39 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP, int TK>
-int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Hkv,
-              int Sq, int Skv, int D, const Strides& st, int causal, int window, float scale,
-              int vec, cudaStream_t stream) {
+template <int DP, int TK, bool LSE>
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
+              int Hkv, int Sq, int Skv, int D, const Strides& st, int causal, int window,
+              float scale, int vec, cudaStream_t stream) {
   static bool opted_in[MAX_DEVICES] = {};
   const size_t smem = tc_smem<DP, TK>();
-  const cudaError_t e = opt_in(fa_tc_kernel<DP, TK>, smem, opted_in);
+  const cudaError_t e = opt_in(fa_tc_kernel<DP, TK, LSE>, smem, opted_in);
   if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)(H / Hkv) * Sq;
   const dim3 grid((unsigned)((rows + TC_M - 1) / TC_M), Hkv, B);
   const float scale_log2 = scale * 1.4426950408889634f;
-  fa_tc_kernel<DP, TK><<<grid, TC_THREADS, smem, stream>>>(
-      q, k, v, o, H, Hkv, Sq, Skv, D, st, causal, window, scale_log2, vec);
+  fa_tc_kernel<DP, TK, LSE><<<grid, TC_THREADS, smem, stream>>>(
+      q, k, v, o, lse, H, Hkv, Sq, Skv, D, st, causal, window, scale_log2, vec);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+// the tensor-core kernel's tiles by head dim
+template <bool LSE>
+int launch_tc_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
+                 int Hkv, int Sq, int Skv, int D, const Strides& st, int causal, int window,
+                 float scale, int vec, cudaStream_t s) {
+  if (D <= 64)
+    return launch_tc<64, 64, LSE>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window,
+                                  scale, vec, s);
+  if (D <= 128)
+    return launch_tc<128, 64, LSE>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window,
+                                   scale, vec, s);
+  return launch_tc<256, 32, LSE>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window,
+                                 scale, vec, s);
+}
 
-int check_args(int B, int H, int Hkv, int Sq, int D, const long long* strides, Strides& st) {
+int check_args(int B, int H, int Hkv, int Sq, int D, const long long* strides, bool has_lse,
+               Strides& st) {
   if (D < 1 || D > 256 || Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -570,6 +502,8 @@ int check_args(int B, int H, int Hkv, int Sq, int D, const long long* strides, S
     st.v[i] = strides[6 + i];
     st.o[i] = strides[9 + i];
   }
+  st.lse[0] = has_lse ? strides[12] : 0;
+  st.lse[1] = has_lse ? strides[13] : 0;
   return 0;
 }
 
@@ -577,36 +511,42 @@ int check_args(int B, int H, int Hkv, int Sq, int D, const long long* strides, S
 
 extern "C" {
 
-// strides: 12 element strides, (batch, head, seq) of q, k, v and o in turn
-int flash_attention_f32(const float* q, const float* k, const float* v, float* o, int B,
-                        int H, int Hkv, int Sq, int Skv, int D, const long long* strides,
-                        int causal, int window, float scale, void* stream) {
+// strides: 12 element strides, (batch, head, seq) of q, k, v and o in turn,
+// then, when lse is not null, its (batch, head) strides (14 in all). lse:
+// null, or float32 (B, H, Sq) with a contiguous last dimension, written
+// with each row's log-sum-exp (see the header)
+int flash_attention_f32(const float* q, const float* k, const float* v, float* o, float* lse,
+                        int B, int H, int Hkv, int Sq, int Skv, int D,
+                        const long long* strides, int causal, int window, float scale,
+                        void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   Strides st;
-  if (const int rc = check_args(B, H, Hkv, Sq, D, strides, st)) return rc;
+  if (const int rc = check_args(B, H, Hkv, Sq, D, strides, lse != nullptr, st)) return rc;
   const cudaStream_t s = (cudaStream_t)stream;
   const int dpl = (D + 31) / 32;
-  if (dpl <= 1) return launch_f32<1>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
-  if (dpl <= 2) return launch_f32<2>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
-  if (dpl <= 4) return launch_f32<4>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
-  return launch_f32<8>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
+  if (dpl <= 1)
+    return launch_f32<1>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
+  if (dpl <= 2)
+    return launch_f32<2>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
+  if (dpl <= 4)
+    return launch_f32<4>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
+  return launch_f32<8>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, s);
 }
 
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                         const __nv_bfloat16* v, __nv_bfloat16* o, int B, int H, int Hkv,
-                         int Sq, int Skv, int D, const long long* strides, int causal,
+                         const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B, int H,
+                         int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
                          int window, float scale, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   Strides st;
-  if (const int rc = check_args(B, H, Hkv, Sq, D, strides, st)) return rc;
+  if (const int rc = check_args(B, H, Hkv, Sq, D, strides, lse != nullptr, st)) return rc;
   bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 64)
-    return launch_tc<64, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, vec, s);
-  if (D <= 128)
-    return launch_tc<128, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, vec, s);
-  return launch_tc<256, 32>(q, k, v, o, B, H, Hkv, Sq, Skv, D, st, causal, window, scale, vec, s);
+  if (lse != nullptr) return launch_tc_dp<true>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st,
+                                                causal, window, scale, vec, s);
+  return launch_tc_dp<false>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, causal, window, scale,
+                             vec, s);
 }
 
 }  // extern "C"

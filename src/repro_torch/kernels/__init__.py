@@ -12,9 +12,11 @@ silently. Every wrapper counts its launches in a plain integer attribute
 ``launch_counts``/``reset_launch_counts`` read and zero them all.
 ``recording`` tallies the launches of one thread alone, as a CUDA-graph
 capture needs while other threads launch kernels of their own; its blocks
-nest. (A backward pass on the card runs on autograd's own device thread,
-so its launches, K4b's and a checkpoint's recomputed K4's, show in the
-counts and not in a ``recording`` block of the caller.)
+nest. A backward pass on the card runs on autograd's own device thread:
+K4's Function keeps the tally open where its forward ran and counts K4b
+there, and a checkpointed layer (``carry_recording``) runs its recompute,
+K4's relaunch, in that tally too, so a block around ``loss.backward()``
+sees both.
 
 Importing this package imports torch only: the kernels are compiled
 (``_build``) the first time a wrapper meets a CUDA tensor.
@@ -23,6 +25,7 @@ Importing this package imports torch only: the kernels are compiled
 from __future__ import annotations
 
 import contextlib
+import functools
 
 
 def wrappers() -> dict:
@@ -72,20 +75,49 @@ def reset_launch_counts() -> None:
 @contextlib.contextmanager
 def recording():
     """Tally, by kernel name, the launches that the calling thread makes
-    inside the block; launches of other threads are not seen. Yields the
-    dict, filled when the block ends. Blocks nest: the launches of an inner
-    block count in every block around it too."""
+    inside the block, and those counted for it on other threads (K4b's,
+    which autograd's device thread launches for the ``FlashAttentionFn``
+    whose forward ran in the block; a ``carry_recording`` function's);
+    other launches of other threads are not seen. Yields the dict, filled
+    when the block ends. Blocks nest: the launches of an inner block count
+    in every block around it too. A launch counted for a block that has
+    already closed (a backward run after the block around its forward
+    ended) counts only in the wrappers' ``launches``."""
     from repro_torch.kernels import _build
 
-    outer = getattr(_build._RECORDING, "tally", None)
+    outer = _build.current_tally()
     _build._RECORDING.tally = tally = {}
     out: dict[str, int] = {}
     try:
         yield out
     finally:
         _build._RECORDING.tally = outer
-        if outer is not None:
-            for fn, n in tally.items():
-                outer[fn] = outer.get(fn, 0) + n
-        out.update({name: tally[fn] for name, fn in wrappers().items()
-                    if fn in tally})
+        with _build._COUNT_LOCK:  # other threads may still count into it
+            counts = dict(tally)
+            if outer is not None:
+                for fn, n in counts.items():
+                    outer[fn] = outer.get(fn, 0) + n
+        out.update({name: counts[fn] for name, fn in wrappers().items()
+                    if fn in counts})
+
+
+def carry_recording(fn):
+    """``fn`` bound to the ``recording`` block open on the calling thread
+    now, if any: every later call, on whatever thread, tallies its
+    launches there. For work that autograd replays on its own device
+    thread, as a checkpointed layer's recompute (K4 launched again) is."""
+    from repro_torch.kernels import _build
+
+    tally = _build.current_tally()
+    if tally is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        saved = _build.current_tally()
+        _build._RECORDING.tally = tally
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _build._RECORDING.tally = saved
+    return run

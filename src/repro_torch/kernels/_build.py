@@ -8,12 +8,17 @@ Every source but the attention kernels (``flash_attention``, its backward
 ``-fmad=false``: their parities with the plain versions (bit-equal in
 float64) rest on no multiply and add being contracted into an FMA; the
 attention kernels' softmax and dot products want their FMAs and are held to
-a tolerance (``flags``). The hash covers the source and its
-flags, so an edited source or flag rebuilds and an unchanged one loads at
-once.
+a tolerance (``flags``). The hash covers the source, the headers of
+``csrc`` it includes (``#include "<name>.cuh"``: the attention kernels'
+``fa_mma.cuh``) and its flags, so an edited source, header or flag rebuilds
+and an unchanged one loads at once.
 ``build_all`` starts one ``nvcc`` per source, all together, and waits for
 them; ``library`` builds a single missing one on demand. Nothing here runs
 when the package is imported.
+
+A wrapper counts each launch with ``counted``: in its ``launches`` and in
+the ``recording`` tally open on the calling thread, or in the tally it is
+given (``current_tally`` names the open one).
 
 A wrapper passes tensor pointers and PyTorch's current stream as
 ``c_void_p`` and raises ``KernelLaunchError`` when the C function returns a
@@ -27,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,6 +53,7 @@ _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()  # guards every wrapper's ``launches``
 _RECORDING = threading.local()  # .tally: {wrapper: launches} of this thread
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 
 class KernelLaunchError(RuntimeError):
@@ -72,9 +79,18 @@ def flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + (() if name in FMAD_SOURCES else ("-fmad=false",))
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the headers of ``csrc`` it includes, in
+    order."""
+    src = CSRC / f"{name}.cu"
+    heads = (CSRC / h.decode() for h in _INCLUDE.findall(src.read_bytes()))
+    return [src] + [h for h in heads if h.is_file()]
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()[:12]
+    text = b"".join(p.read_bytes() for p in sources(name))
+    digest = hashlib.sha1(
+        text + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -153,17 +169,28 @@ def stream_of(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def counted(wrapper) -> None:
+def current_tally():
+    """The tally of the innermost ``recording`` block open on the calling
+    thread, or None."""
+    return getattr(_RECORDING, "tally", None)
+
+
+def counted(wrapper, tally=None) -> None:
     """Add one to ``wrapper.launches``: each wrapper calls this where it has
     launched its kernel, and nowhere else. The increment holds a lock, so
     threads that launch at once (sharded runtimes) lose no count. A launch
-    is also tallied for the calling thread when it is inside
-    ``repro_torch.kernels.recording``."""
+    is also tallied in ``tally`` when given (a launch made on another
+    thread for a block of the caller's, as autograd's device thread runs
+    K4b for the block around ``loss.backward()``), else in the calling
+    thread's open ``repro_torch.kernels.recording`` block, if any. A tally
+    whose block has already closed is read by no one: such a launch counts
+    in ``launches`` only."""
+    if tally is None:
+        tally = current_tally()
     with _COUNT_LOCK:
         wrapper.launches += 1
-    tally = getattr(_RECORDING, "tally", None)
-    if tally is not None:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        if tally is not None:
+            tally[wrapper] = tally.get(wrapper, 0) + 1
 
 
 def needs_grad(*tensors) -> bool:

@@ -22,30 +22,40 @@ def _empty_bshd_view(like):
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention over (B, H, S, D) operands with a kernel on each side: the
-    forward is K4 (``flash_attention_bhsd``), the backward K4b
-    (``flash_attention_bwd_bhsd``); on CPU tensors their plain versions. The
-    output and the gradients are transposed views of (B, S, H, D) storage,
-    so the model's layout round-trips without copies. Under
-    ``torch.utils.checkpoint`` the recomputation runs this forward again,
-    so it relaunches K4."""
+    forward is K4 (``flash_attention_bhsd``), which also writes each row's
+    log-sum-exp, the backward K4b (``flash_attention_bwd_bhsd``), which
+    reads it; on CPU tensors their plain versions. The output and the
+    gradients are transposed views of (B, S, H, D) storage, so the model's
+    layout round-trips without copies. Under ``torch.utils.checkpoint`` the
+    recomputation runs this forward again, so it relaunches K4 (and saves
+    its lse again).
+
+    The forward keeps the ``kernels.recording`` tally open on its thread,
+    and the backward, which autograd runs on its own device thread, counts
+    K4b there: a block around the forward and ``loss.backward()`` sees K4b.
+    If that block has closed before the backward runs, the launch counts
+    only in the wrapper's ``launches``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        B, H, S, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         out = flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                   out=_empty_bshd_view(q))
-        ctx.save_for_backward(q, k, v, out)
+                                   out=_empty_bshd_view(q), lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
+        ctx.tally = _build.current_tally()
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd_bhsd(
-            q, k, v, out, do, causal=ctx.causal, window=ctx.window,
+            q, k, v, out, do, causal=ctx.causal, window=ctx.window, lse=lse,
             dq=_empty_bshd_view(q), dk=_empty_bshd_view(k),
-            dv=_empty_bshd_view(v))
+            dv=_empty_bshd_view(v), tally=ctx.tally)
         return dq, dk, dv, None, None
 
 

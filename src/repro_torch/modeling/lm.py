@@ -47,6 +47,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import kernels
 from repro_torch.modeling.attention import attention, decode_attention
 from repro_torch.modeling.layers import (
     activation,
@@ -184,8 +185,10 @@ def _maybe_remat(fn, remat: str):
                                    _save_dots)
     elif remat != "full":
         raise ValueError(f"unknown remat {remat!r}")
-    return partial(checkpoint, fn, use_reentrant=False,
-                   preserve_rng_state=False, **kw)
+    # the recompute runs on autograd's device thread: carry the caller's
+    # recording block there, so its K4 relaunches are tallied with the step
+    return partial(checkpoint, kernels.carry_recording(fn),
+                   use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 class LM(nn.Module):

@@ -431,6 +431,15 @@ def _one_cpu_thread():
         torch.set_num_threads(n)
 
 
+# K4's card cases: (B, S, H, Hkv, D, causal, window)
+K4_CASES = [(1, 32, 32, 8, 64, True, 0), (2, 100, 4, 2, 64, True, 24),
+            (1, 96, 4, 4, 16, True, 0), (1, 256, 8, 1, 128, True, 40),
+            (2, 64, 4, 2, 32, False, 0), (1, 70, 2, 1, 256, True, 0),
+            (1, 50, 6, 3, 80, False, 17), (1, 200, 8, 2, 80, True, 0),
+            (2, 150, 8, 2, 256, True, 64), (1, 40, 4, 2, 20, True, 0),
+            (2, 9, 2, 1, 1, False, 0)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_on_card(cuda_device, rng, dtype):
@@ -444,16 +453,10 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
     )
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
-    cases = [(1, 32, 32, 8, 64, True, 0), (2, 100, 4, 2, 64, True, 24),
-             (1, 96, 4, 4, 16, True, 0), (1, 256, 8, 1, 128, True, 40),
-             (2, 64, 4, 2, 32, False, 0), (1, 70, 2, 1, 256, True, 0),
-             (1, 50, 6, 3, 80, False, 17), (1, 200, 8, 2, 80, True, 0),
-             (2, 150, 8, 2, 256, True, 64), (1, 40, 4, 2, 20, True, 0),
-             (2, 9, 2, 1, 1, False, 0)]
     # nothing of an earlier test may still run on the card, and the oracle
     # sums in one fixed order on one CPU thread
     torch.cuda.synchronize()
-    for B, S, H, Hkv, D, causal, window in cases:
+    for B, S, H, Hkv, D, causal, window in K4_CASES:
         q = torch.as_tensor(rng.normal(size=(B, H, S, D)), dtype=dtype)
         k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
         v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), dtype=dtype)
@@ -481,6 +484,48 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
                       for t in (q, k, v))
         got2 = flash_attention(qs, ks, vs, causal=causal, window=window)
         assert torch.equal(got2.transpose(1, 2).cpu(), got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K4_CASES + [(1, 40, 4, 2, 64, True, 5, 30)],
+                         ids=str)
+def test_flash_attention_lse_on_card(cuda_device, case, dtype):
+    """The row log-sum-exp K4 writes for K4b against the plain version's
+    ``return_lse`` on the same card inputs, within ``chip_smoke.LSE_TOL``
+    (+inf on both sides for a row that sees no key: in the last case the
+    queries from 34 on, whose 5-key window lies past its 30 keys); the
+    output bit-equal with and without it
+    requested, and the lse written through (b, h) strides of a wider
+    buffer."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_plain,
+    )
+
+    B, S, H, Hkv, D, causal, window = case[:7]
+    Skv = case[7] if len(case) > 7 else S
+    g = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q = torch.randn((B, H, S, D), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((B, Hkv, Skv, D), generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    plain = flash_attention_bhsd(q, k, v, **kw)
+    wide = torch.full((B, H + 1, S + 3), float("nan"), device=cuda_device)
+    lse = wide[:, 1:, 2:S + 2]
+    with_lse = flash_attention_bhsd(q, k, v, lse=lse, **kw)
+    _, want = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, with_lse)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert not torch.isnan(lse).any()
+    live = torch.isfinite(want)
+    assert float((lse[live] - want[live]).abs().max()) <= SMOKE.LSE_TOL, case
+    assert torch.isnan(wide[:, 0]).all() and torch.isnan(wide[..., :2]).all()
+    assert torch.isnan(wide[..., S + 2:]).all()
+    assert bool(torch.isinf(want).any()) == (Skv < S)
+    if Skv < S:
+        assert (lse[..., Skv + window - 1:] == float("inf")).all()
 
 
 @pytest.mark.cuda
@@ -1763,9 +1808,10 @@ K4B_CASES = [  # (B, H, Hkv, S, D, causal, window)
 @pytest.mark.parametrize("case", K4B_CASES, ids=str)
 def test_flash_attention_bwd_on_card(cuda_device, case, dtype):
     """K4b against its plain version on the card, at ``chip_smoke.py``'s
-    training shapes and ragged ones: float32 within K4B_F32_TOL of max(1,
-    |grad|), bf16 each row within K4B_ROW_TOL of its largest |grad|
-    (``chip_smoke.py``'s limits); one count per call."""
+    training shapes and ragged ones, fed K4's lse as ``FlashAttentionFn``
+    feeds it: float32 within K4B_F32_TOL of max(1, |grad|), bf16 each row
+    within K4B_ROW_TOL of its largest |grad| (``chip_smoke.py``'s limits);
+    one count per call."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bhsd,
         flash_attention_bwd_bhsd,
@@ -1778,9 +1824,10 @@ def test_flash_attention_bwd_on_card(cuda_device, case, dtype):
                        .to(dtype) for shape in ((B, H, S, D), (B, H, S, D),
                                                 (B, Hkv, S, D), (B, Hkv, S, D)))
     kw = dict(causal=causal, window=window)
-    o = flash_attention_bhsd(q, k, v, **kw)
+    lse = torch.empty((B, H, S), device=cuda_device)
+    o = flash_attention_bhsd(q, k, v, lse=lse, **kw)
     before = flash_attention_bwd_bhsd.launches
-    got = flash_attention_bwd_bhsd(q, k, v, o, o_like, **kw)
+    got = flash_attention_bwd_bhsd(q, k, v, o, o_like, lse=lse, **kw)
     want = flash_attention_bwd_plain(q, k, v, o, o_like, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd_bhsd.launches == before + 1
@@ -1815,9 +1862,10 @@ def test_flash_attention_bwd_strided_and_deterministic_on_card(cuda_device):
         flash_attention(*xs, causal=True, window=100).backward(do)
         runs.append([x.grad for x in xs])
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    o = flash_attention_bhsd(qt, kt, vt, causal=True, window=100)
+    lse = torch.empty((2, 8, 300), device=cuda_device)
+    o = flash_attention_bhsd(qt, kt, vt, causal=True, window=100, lse=lse)
     want = flash_attention_bwd_bhsd(qt, kt, vt, o, dot, causal=True,
-                                    window=100)
+                                    window=100, lse=lse)
     for a, b, w in zip(*runs, want):
         assert torch.equal(a, b)
         assert torch.equal(a, w.transpose(1, 2))
@@ -1879,10 +1927,32 @@ def test_kernels_without_a_backward_raise_under_autograd_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_flash_attention_bwd_needs_lse_on_card(cuda_device):
+    """On CUDA tensors K4b takes the forward's lse or raises: there is no
+    hidden recomputation of the row statistics."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_bhsd,
+    )
+
+    q = torch.ones((1, 2, 8, 16), device=cuda_device)
+    before = flash_attention_bwd_bhsd.launches
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_bhsd(q, q[:, :1], q[:, :1], q, q)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_bhsd(q, q[:, :1], q[:, :1], q, q,
+                                 lse=torch.zeros((1, 2, 8), device=cuda_device,
+                                                 dtype=torch.float64))
+    assert flash_attention_bwd_bhsd.launches == before
+
+
+@pytest.mark.cuda
 def test_checkpoint_recompute_relaunches_k4_on_card(cuda_device):
     """Under ``torch.utils.checkpoint`` the backward pass recomputes the
     forward through ``FlashAttentionFn`` again: K4 twice, K4b once, and the
-    same gradients as without the checkpoint."""
+    same gradients as without the checkpoint. A ``recording`` block around
+    the step sees K4b, which autograd launches on its device thread, and,
+    with the layer wrapped in ``carry_recording`` as the models wrap
+    theirs, the recomputed K4 too."""
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1893,18 +1963,18 @@ def test_checkpoint_recompute_relaunches_k4_on_card(cuda_device):
                for shape in ((1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)))
 
     def grads(remat):
-        # the wrappers' own counts: autograd runs a CUDA backward (and the
-        # recompute in it) on its device thread, which a ``recording``
-        # block of this thread does not see
         xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
         before = kernels.launch_counts()
-        out = checkpoint(flash_attention, *xs, use_reentrant=False) \
-            if remat else flash_attention(*xs)
-        out.float().square().sum().backward()
-        torch.cuda.synchronize()
+        with kernels.recording() as rec:
+            out = checkpoint(kernels.carry_recording(flash_attention), *xs,
+                             use_reentrant=False) \
+                if remat else flash_attention(*xs)
+            out.float().square().sum().backward()
+            torch.cuda.synchronize()
         tally = {name: n - before[name]
                  for name, n in kernels.launch_counts().items()
                  if n != before[name]}
+        assert rec == tally
         return [x.grad for x in xs], tally
 
     plain, t_plain = grads(False)
@@ -1913,6 +1983,41 @@ def test_checkpoint_recompute_relaunches_k4_on_card(cuda_device):
     assert t_remat == {"flash_attention": 2, "flash_attention_bwd": 1}
     for a, b in zip(plain, remat):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_recording_counts_k4b_per_layer_on_card(cuda_device,
+                                                           remat):
+    """One llama-shaped training step (the smoke llama3.2-1b in bf16) with
+    its loss and ``torch.autograd.grad`` inside a ``recording()`` block
+    counts K4b once per layer, though autograd launches it on its own
+    device thread, and K4 once per layer more under remat "full" (the
+    recompute); the block agrees with the wrappers' global counts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = smoke_config("llama3.2-1b").with_updates(remat=remat,
+                                                   dtype="bfloat16")
+    model = build_model(cfg)
+    params = {k: t.to(cuda_device).requires_grad_(True) for k, t in
+              model.init(torch.Generator().manual_seed(0)).items()}
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             make_pipeline(cfg, seq_len=64, global_batch=2, seed=0)
+             .batch(0).items()}
+    before = kernels.launch_counts()
+    with kernels.recording() as tally:
+        (loss, _), grads = _value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert tally == {"flash_attention": (2 if remat == "full" else 1) * n,
+                     "flash_attention_bwd": n}
+    assert tally == {name: c - before[name] for name, c in
+                     kernels.launch_counts().items() if c != before[name]}
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads.values())
 
 
 @pytest.mark.cuda

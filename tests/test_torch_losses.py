@@ -10,13 +10,19 @@ its port:
   ``jax.grad`` of the reference's XLA ``chunked_attention``, the attention
   the reference trains through (it has no Pallas backward): causal,
   windowed and bidirectional, MHA/GQA/MQA, head dims 16, 64 and 256;
+- the row log-sum-exp K4 writes for K4b (``flash_attention_plain(...,
+  return_lse=True)``, and ``flash_attention_bhsd(..., lse=)`` on CPU
+  tensors) against a log-sum-exp of the reference's masked, scaled scores,
+  and K4b's plain version fed it against the same without it;
 - ``chunked_softmax_xent`` (one-hot and gather lookups, soft-capped, a
   chunk that does not divide S) and ``full_softmax_xent``, in value and in
   their gradients with respect to the hidden states and the unembedding.
 
 Tolerances: float32 throughout; 1e-5 (relative and absolute) for the
-attention gradients, 1e-5 for the loss values and 1e-6 for the loss
-gradients (XLA and PyTorch sum in different orders).
+attention gradients and the log-sum-exp, 1e-6 between K4b's plain version
+with and without the forward's lse (the same formulas, P normalised by a
+division or by the subtracted lse), 1e-5 for the loss values and 1e-6 for
+the loss gradients (XLA and PyTorch sum in different orders).
 """
 
 from __future__ import annotations
@@ -27,11 +33,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.modeling.attention import chunked_attention
+from repro.modeling.attention import _block_mask, chunked_attention
 from repro.modeling.losses import chunked_softmax_xent as jax_chunked_xent
 from repro.modeling.losses import full_softmax_xent as jax_full_xent
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bhsd,
     flash_attention_bwd_bhsd,
     flash_attention_bwd_plain,
     flash_attention_plain,
@@ -42,6 +49,8 @@ from repro_torch.modeling.losses import chunked_softmax_xent, full_softmax_xent
 GRAD_TOL = 1e-5
 LOSS_TOL = 1e-5
 LOSS_GRAD_TOL = 1e-6
+LSE_TOL = 1e-5
+LSE_BWD_TOL = 1e-6
 
 # (B, S, H, Hkv, D, causal, window)
 ATTN_CASES = [(2, 40, 4, 2, 16, True, 0), (1, 37, 4, 1, 16, True, 9),
@@ -92,6 +101,92 @@ def test_attention_gradient_matches_reference(case, rng):
     for x, want in zip(xs, (jdq, jdk, jdv)):
         np.testing.assert_allclose(x.grad.numpy(), want, rtol=GRAD_TOL,
                                    atol=GRAD_TOL)
+
+
+def _jax_lse(q, k, causal, window):
+    """(B, H, Sq) log-sum-exp of the reference's masked, scaled scores
+    (``_block_mask`` and the score einsum of ``_attend_block``), from (B, S,
+    H, D) inputs."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = jnp.asarray(q).reshape(B, Sq, Hkv, H // Hkv, D)
+    s = jnp.einsum("bqkgd,bskd->bkgqs", qg, jnp.asarray(k),
+                   preferred_element_type=jnp.float32) / (D ** 0.5)
+    mask = _block_mask(jnp.arange(Sq), jnp.arange(Skv), causal, window)
+    lse = jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1)
+    return np.asarray(lse).reshape(B, H, Sq)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES,
+                         ids=lambda c: "B{}S{}H{}kv{}D{}{}w{}".format(
+                             *c[:5], "c" if c[5] else "b", c[6]))
+def test_attention_lse_matches_reference(case, rng):
+    """K4's row statistics: the plain version's ``return_lse`` and the
+    wrapper's ``lse=`` on CPU tensors equal a log-sum-exp of the
+    reference's masked, scaled scores; the output is the same with or
+    without them."""
+    B, S, H, Hkv, D, causal, window = case
+    q, k, v = (rng.normal(size=(B, S, h, D)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    want = _jax_lse(q, k, causal, window)
+    tq, tk, tv = (torch.as_tensor(x).transpose(1, 2) for x in (q, k, v))
+    o, lse = flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                   return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=LSE_TOL, atol=LSE_TOL)
+    assert torch.equal(o, flash_attention_plain(tq, tk, tv, causal=causal,
+                                                window=window))
+    buf = torch.full((B, H, S), float("nan"))
+    kernels.reset_launch_counts()
+    out = flash_attention_bhsd(tq, tk, tv, causal=causal, window=window,
+                               lse=buf)
+    assert flash_attention_bhsd.launches == 0  # CPU: the plain version
+    assert torch.equal(out, o) and torch.equal(buf, lse)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES,
+                         ids=lambda c: "B{}S{}H{}kv{}D{}{}w{}".format(
+                             *c[:5], "c" if c[5] else "b", c[6]))
+def test_attention_gradient_from_lse_matches_normalised(case, rng):
+    """K4b's plain version with P from the forward's lse (as K4b forms it)
+    equals the version that normalises P itself, and so does the wrapper on
+    CPU tensors given that lse."""
+    B, S, H, Hkv, D, causal, window = case
+    q, k, v, g = (torch.as_tensor(rng.normal(size=(B, h, S, D)),
+                                  dtype=torch.float32)
+                  for h in (H, Hkv, Hkv, H))
+    o, lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, g, causal=causal,
+                                     window=window)
+    got = flash_attention_bwd_plain(q, k, v, o, g, causal=causal,
+                                    window=window, lse=lse)
+    via = flash_attention_bwd_bhsd(q, k, v, o, g, causal=causal,
+                                   window=window, lse=lse)
+    for a, b, c in zip(got, want, via):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=LSE_BWD_TOL,
+                                   atol=LSE_BWD_TOL)
+        assert torch.equal(a, c)
+
+
+def test_attention_lse_of_a_row_without_keys_zeroes_its_gradient(rng):
+    """A query row that sees no key (past the keys, causal) gets lse +inf,
+    so every P of the row is exactly 0 and so are its output and its
+    gradients, with or without lse."""
+    q, g = (torch.as_tensor(rng.normal(size=(1, 2, 6, 8)), dtype=torch.float32)
+            for _ in range(2))
+    k, v = (torch.as_tensor(rng.normal(size=(1, 1, 4, 8)), dtype=torch.float32)
+            for _ in range(2))
+    o, lse = flash_attention_plain(q, k, v, causal=True, window=2,
+                                   return_lse=True)
+    assert torch.isinf(lse[..., 5:]).all() and (lse[..., 5:] > 0).all()
+    assert torch.isfinite(lse[..., :5]).all()
+    assert torch.equal(o[:, :, 5:], torch.zeros_like(o[:, :, 5:]))
+    for lse_in in (None, lse):
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, g, causal=True,
+                                               window=2, lse=lse_in)
+        assert torch.equal(dq[:, :, 5:], torch.zeros_like(dq[:, :, 5:]))
+        assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
 
 
 def test_attention_gradient_plain_formulas_match_autograd(rng):

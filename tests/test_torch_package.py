@@ -11,9 +11,12 @@
 - a CPU tensor runs a kernel's plain version and leaves every launch
   counter at 0;
 - ``kernels.recording`` tallies the launches of the calling thread alone,
-  and the launch counters lose no count under concurrent threads;
+  and those counted for its block on another thread (K4b's, on autograd's
+  device thread; a ``carry_recording`` function's), and the launch
+  counters lose no count under concurrent threads;
 - each CUDA source's nvcc flags (``-fmad=false`` on all but
-  ``flash_attention``) and the library hash over them.
+  ``flash_attention``) and the library hash over them and over the headers
+  a source includes.
 """
 
 from __future__ import annotations
@@ -323,6 +326,100 @@ def test_recording_sees_only_its_own_thread():
     _build.counted(decode_attention_bhd)  # outside the block: not tallied
     assert tally == {"decode_attention": 2, "flash_attention": 1}
     kernels.reset_launch_counts()
+
+
+def _on_thread(fn):
+    t = threading.Thread(target=fn)
+    t.start()
+    t.join()
+
+
+def test_recording_counts_a_launch_made_for_it_on_another_thread():
+    """A launch counted on another thread with the tally a block had open
+    (as autograd's device thread counts K4b with the tally that
+    ``FlashAttentionFn``'s forward kept) shows in that block and in the
+    blocks around it; nested blocks still merge. Once the block has closed,
+    such a launch counts only in the wrapper's ``launches``, never in a
+    block around it or in a later block."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
+    )
+
+    def backward(tally, n=1):
+        _on_thread(lambda: [_build.counted(flash_attention_bwd_bhsd, tally)
+                            for _ in range(n)])
+
+    kernels.reset_launch_counts()
+    assert _build.current_tally() is None
+    with kernels.recording() as outer:
+        _build.counted(flash_attention_bhsd)
+        with kernels.recording() as inner:
+            captured = _build.current_tally()
+            _build.counted(flash_attention_bhsd)
+            backward(captured, 2)
+        assert inner == {"flash_attention": 1, "flash_attention_bwd": 2}
+        backward(captured)  # the inner block has closed: global count only
+        around = _build.current_tally()
+        backward(around)
+    assert outer == {"flash_attention": 2, "flash_attention_bwd": 3}
+    backward(around)
+    with kernels.recording() as later:
+        backward(captured)
+    assert later == {}
+    assert outer == {"flash_attention": 2, "flash_attention_bwd": 3}
+    assert kernels.launch_counts()["flash_attention_bwd"] == 6
+    assert _build.current_tally() is None
+    kernels.reset_launch_counts()
+
+
+def test_carry_recording_runs_a_function_in_the_callers_block():
+    """``carry_recording`` binds a function to the block open where it was
+    made: run on another thread (as autograd runs a checkpointed layer's
+    recompute), its launches show in that block, and that thread's own
+    tally is restored after; made outside any block it is the function
+    itself."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+
+    def launch():
+        _build.counted(flash_attention_bhsd)
+        return _build.current_tally()
+
+    assert kernels.carry_recording(launch) is launch
+    kernels.reset_launch_counts()
+    seen = []
+    with kernels.recording() as tally:
+        carried = kernels.carry_recording(launch)
+        _on_thread(lambda: seen.extend([carried(), _build.current_tally()]))
+        carried()
+    assert tally == {"flash_attention": 2}
+    assert seen[0] is not None and seen[1] is None
+    assert kernels.launch_counts()["flash_attention"] == 2
+    kernels.reset_launch_counts()
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """K4 and K4b include the shared ``fa_mma.cuh``: each library's name
+    hashes it with the source, so an edited header rebuilds both and no
+    other."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert _build.CSRC / "fa_mma.cuh" in _build.sources(name)
+    for path in _build.CSRC.iterdir():
+        if path.is_file():
+            shutil.copy(path, tmp_path / path.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {name: _build.lib_path(name) for name in _build.SOURCES}
+    header = tmp_path / "fa_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    changed = {name for name in _build.SOURCES
+               if _build.lib_path(name) != before[name]}
+    assert changed == {"flash_attention", "flash_attention_bwd"}
 
 
 def test_launch_counts_survive_concurrent_threads():
