@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and print the build seconds
-   and the ptxas resource lines; count the tensor-core instructions
+   ``nvcc`` per source, all started together: ``ssd_scan_bwd``, K6b, among
+   them) and print the build seconds and the ptxas resource lines; count the tensor-core instructions
    (``HMMA``/``HGMMA``) per kernel in the built ``flash_attention`` and
    ``decode_attention`` libraries' SASS (``cuobjdump -sass``), failing if
    either bf16 kernel has none, and in ``flash_attention_bwd``'s, failing
@@ -188,17 +188,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one step's device time by kind of kernel, K4b's by kernel); and on the
    ``examples/train_100m_torch.py`` configuration two runs from one seed
    (equal losses) and a run killed at step 6 and restarted from its
-   checkpoint (within rtol 1e-5 of the uninterrupted run). This phase
-   reads its launches from ``kernels.recording()`` blocks around each step
-   (the float32 step, the slice's 10 steps and each profiled step), which
-   see K4b and the remat's K4 though autograd launches them on its own
-   device thread;
+   checkpoint (within rtol 1e-5 of the uninterrupted run). Beside K4b:
+   K3b (``linear_scan_bwd``) against its plain version at
+   recurrentgemma-9b's training recurrence ((1, 4096, 4096) float32) within
+   5e-5 of max(1, |grad|), two planted faults (the final state's seed
+   dropped, a read unshifted) outside it; K6b (``ssd_scan_bwd``) at
+   mamba2-780m's first layer's inputs at B=2, S=2048 (16 chunks), fed K6's
+   workspace of chunk states, float32 within 1e-4 of max(1, |grad|), bf16
+   rows within 2^-6 of their largest |grad| and three planted faults (the
+   reverse sum of dcum dropped, the carry from the next chunk dropped, one
+   head left out of dB) outside it; each run twice, bit-equal, timed with
+   its plain version and bound. Float32 steps of mamba2-780m (2 layers,
+   S=256) and recurrentgemma-9b (3 layers, S=160) at full width, card vs
+   CPU, held as llama's. Two more slices through ``train()``, bf16 on
+   float32 masters, remat "full", 10 steps: mamba2-780m at full width and
+   depth, B=2, S=2048 (K6 96 and K6b 48 launches a step), and
+   recurrentgemma-9b at full width cut to 3 layers (one (rec, rec, attn)
+   group), B=1, S=4096 (K3 4, K3b 2, K4 2, K4b 1 a step); every slice's
+   losses finite and falling and its peak allocated memory under 90% of
+   the card. This phase reads its launches from ``kernels.recording()``
+   blocks around each step (the float32 steps, the slices' 10 steps and
+   each profiled step), which see the backward kernels and the remat's
+   forward kernels though autograd launches them on its own device thread;
 8. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (K1-K6, K4b, walk and replay), and as the last line
+   line (K1-K6, K3b, K4b, K6b, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's ``launches`` are its wrapper's count over its main paths' runs
-(the placement stream, the live serves and the training slice): the calls that launched it (or
+(the placement stream, the live serves and the three training slices): the
+calls that launched it (or
 recorded it into a CUDA graph at a capture). The launches that prefill and
 decode graph replays run are counted apart, as ``graph_replayed``, from the
 graphs' own tally (``serving.engine.replayed_launches``).
@@ -318,6 +336,30 @@ STEP_GRAD_TOL, ADAMW_TOL = 1e-4, 1e-6
 # (c) the slice: llama3.2-1b at full width and depth, B=2, S=2048 (two
 # 1,024-token loss chunks), 10 steps
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 10
+# (a') K3b at recurrentgemma-9b's training recurrence (B, S, d_rnn) and K6b
+# at mamba2-780m's layer inputs at its slice's (B, S), against their plain
+# versions: float32 gradients within K3B_TOL (K3's own forward limit) and
+# K6B_TOL (K6's float32 limit) of max(1, |grad|), element by element (K6b's
+# sums over the scores, dcum and dA run in float64 on both sides, so the
+# terms that cancel do so exactly); bf16 (K6b) each row within K4B_ROW_TOL
+# of its largest |grad|, floored as K4b's; planted faults must break them:
+# K3b's the float32 limit, K6b's the bf16 row limit
+K3B_SHAPE = (1, 4096, 4096)
+K3B_TOL, K6B_TOL = 5e-5, 1e-4
+# (b') the float32 steps of mamba2-780m (2 layers) and recurrentgemma-9b
+# (3 layers: one (rec, rec, attn) group) at full width, card vs CPU, held as
+# llama's: S spans 2 chunks of K6 (128 rows) and of K3 (128 rows)
+SSM_STEP_LAYERS, SSM_STEP_S = 2, 256
+HYBRID_STEP_LAYERS, HYBRID_STEP_S = 3, 160
+# (c') the slices: mamba2-780m at full width and depth, B=2, S=2048 (16 K6
+# chunks of 128); recurrentgemma-9b at full width cut to 3 layers (its 38
+# would take 155.6 GiB of float32 masters, gradients and moments; 3 take
+# 41.0 GiB, 2.10 B of its 2.75 B parameters in the embedding and
+# unembedding), B=1, S=4096 (past the 2,048 window). Each 10 steps, peak
+# allocated memory under PEAK_FRACTION of the card
+SSM_TRAIN_B, SSM_TRAIN_S = 2, 2048
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_S = 3, 1, 4096
+PEAK_FRACTION = 0.9
 
 DECISION_COLS = ("predicted_cold", "feasible")
 FLOAT_COLS = ("predicted_latency_ms", "predicted_cost", "allowed_cost")
@@ -378,9 +420,9 @@ def main() -> int:
              timed("live hybrid", phase_live, dev, HYBRID_ARCH)]
     repeat = timed("k4 f32 repeat", fa_f32_repeat, dev)
     trained = timed("train", phase_train, dev, card)
-    rows.append(trained["row"])
+    rows += trained["rows"]
     # each kernel's launches over its main paths' runs: the placement
-    # stream's, every live serve's and the training slice's (counts zeroed
+    # stream's, every live serve's and the training slices' (counts zeroed
     # before each)
     launches = dict(serve["launches"])
     for name, n in trained["launches"].items():
@@ -663,7 +705,8 @@ def bits_equal(a, b) -> bool:
     import torch
 
     a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
-    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32,
+            torch.bfloat16: torch.int16}
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.view(ints[a.dtype]), b.view(ints[b.dtype]))
 
@@ -2464,12 +2507,28 @@ def k4b_case(shape, dtype, dev, causal, window, reps, faults=()):
     return res
 
 
-def train_step_check(dev) -> dict:
-    """One float32 training step of llama3.2-1b at full width and
-    STEP_LAYERS layers on the card and on the CPU from the same parameters
-    and batch: the loss, the global grad norm and every parameter's
-    gradient (the q/k/v ones through K4b), then the card's AdamW update
-    against the CPU's AdamW applied to the card's gradients."""
+def train_launches(cfg) -> dict:
+    """The kernel launches of one training step under remat "full": each
+    layer's forward kernel twice (forward and recompute), its backward
+    kernel once."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
+    pattern = cfg.block_pattern if cfg.family == "hybrid" else ("attn",)
+    kinds = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
+    out = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    if n_rec:
+        out.update(linear_scan=2 * n_rec, linear_scan_bwd=n_rec)
+    return out
+
+
+def train_step_check(dev, arch, layers, B, S, adamw=False) -> dict:
+    """One float32 training step of ``arch`` at full width and ``layers``
+    layers (remat "full") on the card and on the CPU from the same
+    parameters and batch: the loss, the global grad norm and every
+    parameter's gradient (through K4b, K3b, K6b on the card), and with
+    ``adamw`` the card's AdamW update against the CPU's AdamW applied to
+    the card's gradients."""
     import torch
 
     from repro_torch import kernels
@@ -2479,15 +2538,13 @@ def train_step_check(dev) -> dict:
     from repro_torch.training.data import make_pipeline
     from repro_torch.training.train_loop import _value_and_grad
 
-    cfg = get_config(ARCH).with_updates(n_layers=STEP_LAYERS,
-                                        dtype="float32")
+    cfg = get_config(arch).with_updates(n_layers=layers, dtype="float32")
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0))
     card = {k: t.to(dev).requires_grad_(True) for k, t in cpu.items()}
     for t in cpu.values():
         t.requires_grad_(True)
-    batch = make_pipeline(cfg, seq_len=STEP_S, global_batch=STEP_B,
-                          seed=0).batch(0)
+    batch = make_pipeline(cfg, seq_len=S, global_batch=B, seed=0).batch(0)
     with kernels.recording() as launches:
         (loss_d, _), g_d = _value_and_grad(
             model, card, {k: torch.as_tensor(v, device=dev)
@@ -2501,48 +2558,67 @@ def train_step_check(dev) -> dict:
                     / g_c[k].abs().max().clamp_min(1e-30)) for k in g_c}
     worst = max(rel, key=rel.get)
     norm_d, norm_c = float(opt.global_norm(g_d)), float(opt.global_norm(g_c))
-    res = {"layers": STEP_LAYERS, "batch": [STEP_B, STEP_S],
+    mixer = ("/attn/", "/mixer/", "rec_layers/")
+    res = {"arch": arch, "layers": layers, "batch": [B, S],
+           "params": model.param_count(),
            "loss_card": float(loss_d), "loss_cpu": float(loss_c),
            "loss_rel_err": abs(float(loss_d) - float(loss_c)) / abs(float(loss_c)),
            "grad_norm_rel_err": abs(norm_d - norm_c) / norm_c,
            "grad_max_rel_err": rel[worst], "grad_worst": worst,
-           "attn_grad_max_rel_err": max(v for k, v in rel.items()
-                                        if "/attn/" in k),
+           "mixer_grad_max_rel_err": max(v for k, v in rel.items()
+                                         if any(m in k for m in mixer)),
            "launches": launches, "cpu_s": cpu_s}
-    # AdamW: the card's update against the CPU's on the card's gradients
-    ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
-    g_dc = {k: t.cpu() for k, t in g_d.items()}
-    with torch.no_grad():
-        ref = {k: t.detach().clone() for k, t in cpu.items()}
-    opt.adamw_update(card, g_d, opt.init_opt_state(card), ocfg)
-    opt.adamw_update(ref, g_dc, opt.init_opt_state(ref), ocfg)
-    res["adamw_max_abs_err"] = max(float((card[k].detach().cpu() - ref[k])
-                                         .abs().max()) for k in ref)
-    opt.adamw_update(cpu, g_c, opt.init_opt_state(cpu), ocfg)
-    res["params_card_vs_cpu_max_abs"] = max(
-        float((card[k].detach().cpu() - cpu[k].detach()).abs().max())
-        for k in cpu)
-    log(f"[train] (b) float32 step, card vs CPU: {json.dumps(res)}")
+    if adamw:
+        # AdamW: the card's update against the CPU's on the card's gradients
+        ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                   decay_steps=10)
+        g_dc = {k: t.cpu() for k, t in g_d.items()}
+        with torch.no_grad():
+            ref = {k: t.detach().clone() for k, t in cpu.items()}
+        opt.adamw_update(card, g_d, opt.init_opt_state(card), ocfg)
+        opt.adamw_update(ref, g_dc, opt.init_opt_state(ref), ocfg)
+        res["adamw_max_abs_err"] = max(float((card[k].detach().cpu() - ref[k])
+                                             .abs().max()) for k in ref)
+        opt.adamw_update(cpu, g_c, opt.init_opt_state(cpu), ocfg)
+        res["params_card_vs_cpu_max_abs"] = max(
+            float((card[k].detach().cpu() - cpu[k].detach()).abs().max())
+            for k in cpu)
+    log(f"[train] (b) {arch} float32 step, card vs CPU: {json.dumps(res)}")
     if res["loss_rel_err"] > FULL_WIDTH_TOL or \
             res["grad_norm_rel_err"] > FULL_WIDTH_TOL or \
             res["grad_max_rel_err"] > STEP_GRAD_TOL or \
-            res["adamw_max_abs_err"] > ADAMW_TOL:
-        fail(f"the float32 training step on the card differs from the "
-             f"CPU's: {res}")
-    if launches.get("flash_attention_bwd", 0) != STEP_LAYERS or \
-            launches.get("flash_attention", 0) != 2 * STEP_LAYERS:
-        fail(f"the float32 step launched {launches}: expected K4 twice and "
-             f"K4b once per layer")
+            res.get("adamw_max_abs_err", 0.0) > ADAMW_TOL:
+        fail(f"the float32 training step of {arch} on the card differs from "
+             f"the CPU's: {res}")
+    want = train_launches(cfg)
+    if launches != want:
+        fail(f"the float32 step of {arch} launched {launches}, expected "
+             f"{want}")
     return res
 
 
+# the port's kernels in a profiler trace, by kind: (kind, name fragments);
+# the first match wins
+KERNEL_KINDS = (
+    ("k4b", ("fa_bwd",)), ("k4", ("fa_tc_kernel", "fa_f32_kernel")),
+    ("k6b", ("bwd_states_kernel", "bwd_carry_kernel", "bwd_scores_kernel",
+             "bwd_dx_kernel", "bwd_dbc_kernel", "bwd_reduce_kernel")),
+    ("k6", ("ssd_chunk_kernel", "ssd_tc_kernel", "ssd_carry_kernel")),
+    ("k3b", ("chunk_bwd_",)), ("k3", ("chunk_summary_kernel",
+                                     "chunk_apply_kernel")),
+    ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_",
+                "splitk")))
+BACKWARD_KINDS = ("k3b", "k4b", "k6b")
+
+
 def step_split(model, params, batch, opt_cfg, want) -> dict:
-    """Device ms of one training step of the slice by kind of kernel
-    (``torch.profiler``): matmuls (cuBLAS), K4, K4b (and each of K4b's
-    kernels, ``k4b_kernels``), and everything else; and the loss (chunked
-    cross-entropy forward + backward on the final hidden states) and AdamW
-    (clip + update) timed apart. Each step runs in a ``recording()`` block,
-    whose launches must be ``want``."""
+    """Device ms of one training step of a slice by kind of kernel
+    (``torch.profiler``): matmuls (cuBLAS), the port's forward and backward
+    kernels (and each backward kernel's launches by name, ``bwd_kernels``),
+    and everything else; and the loss (chunked cross-entropy forward +
+    backward on the final hidden states) and AdamW (clip + update) timed
+    apart. Each step runs in a ``recording()`` block, whose launches must
+    be ``want``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2564,28 +2640,26 @@ def step_split(model, params, batch, opt_cfg, want) -> dict:
     step()  # warm
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
-    split = {"matmul": 0.0, "k4": 0.0, "k4b": 0.0, "other": 0.0}
-    others, k4b = {}, {}
+    split = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    split["other"] = 0.0
+    others, bwd = {}, {}
     for e in prof.key_averages():
         ms = getattr(e, "device_time_total", 0.0) / 1e3
         key = e.key.lower()
-        if "fa_bwd" in key:
-            split["k4b"] += ms
+        kind = next((k for k, frags in KERNEL_KINDS
+                     if any(f.lower() in key for f in frags)), "other")
+        split[kind] += ms
+        if kind in BACKWARD_KINDS:
             name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
             name = name.split("(")[0]
-            k4b[name] = k4b.get(name, 0.0) + ms
-        elif "fa_tc_kernel" in key or "fa_f32_kernel" in key:
-            split["k4"] += ms
-        elif any(w in key for w in ("gemm", "xmma", "cutlass", "cublas",
-                                    "nvjet", "sm90_", "splitk")):
-            split["matmul"] += ms
-        else:
-            split["other"] += ms
+            bwd[name] = bwd.get(name, 0.0) + ms
+        elif kind == "other":
             others[e.key[:80]] = others.get(e.key[:80], 0.0) + ms
     if not sum(split.values()):
         fail("torch.profiler recorded no device time")
+    split = {k: v for k, v in split.items() if v or k in ("matmul", "other")}
     split["total"] = sum(split.values())
-    split["k4b_kernels"] = k4b
+    split["bwd_kernels"] = bwd
     split["top_other"] = dict(sorted(others.items(),
                                      key=lambda kv: -kv[1])[:8])
     with torch.no_grad():
@@ -2593,6 +2667,7 @@ def step_split(model, params, batch, opt_cfg, want) -> dict:
     h.requires_grad_(True)
     split["loss_ms"] = cuda_ms(lambda: torch.autograd.grad(
         model._xent(params, h, batch), (h,)), 2)
+    del h
     grads = {k: torch.zeros_like(p) for k, p in params.items()}
     split["adamw_ms"] = cuda_ms(lambda: adamw_update(params, grads, state,
                                                      opt_cfg), 2)
@@ -2600,11 +2675,14 @@ def step_split(model, params, batch, opt_cfg, want) -> dict:
     return split
 
 
-def slice_run(dev) -> dict:
-    """The slice: llama3.2-1b at full width and depth, bf16 compute,
-    float32 master parameters, remat "full", TRAIN_STEPS steps of
-    (TRAIN_B, TRAIN_S) through ``train()`` inside one ``recording()``
-    block, whose launches are the slice's."""
+def slice_run(dev, arch, B, S, layers=None) -> dict:
+    """A slice: ``arch`` at full width (and depth, unless ``layers`` cuts
+    it), bf16 compute, float32 master parameters, remat "full",
+    TRAIN_STEPS steps of (B, S) through ``train()`` inside one
+    ``recording()`` block, whose launches are the slice's; then one step's
+    device time by kind on fresh parameters."""
+    import gc
+
     import numpy as np
     import torch
 
@@ -2615,37 +2693,50 @@ def slice_run(dev) -> dict:
     from repro_torch.training.optimizer import OptimizerConfig
     from repro_torch.training.train_loop import LoopConfig, train
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     if (cfg.dtype, cfg.param_dtype, cfg.remat) != ("bfloat16", "float32",
                                                     "full"):
-        fail(f"{ARCH}'s config is not the slice's: {cfg}")
+        fail(f"{arch}'s config is not the slice's: {cfg}")
+    if layers:
+        cfg = cfg.with_updates(n_layers=layers)
     model = build_model(cfg)
-    pipe = make_pipeline(cfg, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    pipe = make_pipeline(cfg, seq_len=S, global_batch=B, seed=0)
     ocfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
                            decay_steps=TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with kernels.recording() as launches:
         res = train(model, pipe, LoopConfig(steps=TRAIN_STEPS, log_every=1),
                     ocfg, seed=0, device=dev, log=log)
     peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
     step_ms = float(np.median(res.step_s)) * 1e3
-    out = {"params": model.param_count(), "steps": TRAIN_STEPS,
-           "batch": [TRAIN_B, TRAIN_S], "loss_chunk": cfg.loss_chunk,
+    out = {"arch": arch, "layers": cfg.n_layers, "params": model.param_count(),
+           "steps": TRAIN_STEPS, "batch": [B, S], "loss_chunk": cfg.loss_chunk,
            "median_step_ms": step_ms, "step_ms": [s * 1e3 for s in res.step_s],
-           "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
-           "peak_gib": peak / 2 ** 30, "loss_first": res.losses[0],
-           "loss_last": res.losses[-1], "launches": launches,
+           "tokens_per_s": B * S / (step_ms / 1e3),
+           "peak_gib": peak / 2 ** 30, "peak_fraction": peak / total,
+           "loss_first": res.losses[0], "loss_last": res.losses[-1],
+           "losses": res.losses, "launches": launches,
            "per_step": {k: n / TRAIN_STEPS for k, n in launches.items()}}
-    log(f"[train] (c) {ARCH} full width, {TRAIN_STEPS} steps: "
-        f"{json.dumps(out)}")
+    log(f"[train] (c) {arch} full width, {cfg.n_layers} layers, "
+        f"{TRAIN_STEPS} steps: {json.dumps(out)}")
     if not np.all(np.isfinite(res.losses)):
-        fail(f"the slice's losses are not finite: {res.losses}")
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
+        fail(f"the {arch} slice's losses are not finite: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"the {arch} slice's loss did not fall: {res.losses}")
+    if out["peak_fraction"] > PEAK_FRACTION:
+        fail(f"the {arch} slice peaked at {out['peak_gib']:.1f} GiB, over "
+             f"{PEAK_FRACTION:.0%} of the card")
+    want = train_launches(cfg)
     if out["per_step"] != want:
-        fail(f"the slice launched {out['per_step']} per step, expected "
-             f"{want} (K4 twice per layer with the remat recompute, K4b "
-             f"once)")
+        fail(f"the {arch} slice launched {out['per_step']} per step, "
+             f"expected {want} (each forward kernel twice per layer with "
+             f"the remat recompute, each backward kernel once)")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
     # the step's device time by kind, on fresh parameters and one batch
     gen = torch.Generator(device=dev).manual_seed(1)
     params = model.init(gen, device=dev)
@@ -2654,7 +2745,7 @@ def slice_run(dev) -> dict:
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in pipe.batch(0).items()}
     out["split_ms"] = step_split(model, params, batch, ocfg, want)
-    log(f"[train] (c) one step's device ms by kind: "
+    log(f"[train] (c) {arch}: one step's device ms by kind: "
         f"{json.dumps(out['split_ms'])}")
     del params, batch
     return out
@@ -2717,18 +2808,226 @@ def restart_check(dev) -> dict:
     return res
 
 
+def k3b_planted(dh, dfinal, a, h, fault):
+    """K3b's plain formulas with one fault planted: the ``dfinal`` seed
+    dropped, or a read unshifted (``g_t = dh_t + a_t g_{t+1}``)."""
+    import torch
+
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_bwd_plain
+
+    if fault == "dfinal":
+        return linear_scan_bwd_plain(dh, None, a, h)
+    return linear_scan_bwd_plain(dh, dfinal, torch.roll(a, 1, dims=1), h)
+
+
+def k6b_planted(x, dt, A, B, C, dy, dstate, chunk, fault):
+    """K6b's plain version recomposed from its per-chunk formulas
+    (``ssd_chunk_grads``), with one fault planted (None: none): ``cumsum``
+    drops the reverse sum of dcum within each chunk, ``carry`` the state
+    gradient carried in from the next chunk (every chunk but the last sees
+    dh_next = 0), ``head`` leaves head 0 out of dB. Returns (dx, ddt, dA,
+    dB, dC) as ``ssd_scan_bwd_plain`` does."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        _padded_chunks,
+        chunk_states,
+        reverse_cumsum,
+        ssd_chunk_grads,
+    )
+
+    b, H, S, hd = x.shape
+    Q = min(chunk, S)
+    xf, dyf, dtf = (_padded_chunks(t, Q, 2) for t in (x, dy, dt))
+    Bf, Cf = _padded_chunks(B, Q, 1), _padded_chunks(C, Q, 1)
+    states = chunk_states(x, dt, A, B, chunk=chunk)
+    dh = dstate.float()
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (xf, dtf, Bf, Cf))
+    dA = torch.zeros(H, dtype=torch.float64, device=x.device)
+    for c in range(states.shape[1] - 1, -1, -1):
+        sl = slice(c * Q, (c + 1) * Q)
+        g = ssd_chunk_grads(xf[:, :, sl], dtf[:, :, sl], A, Bf[:, sl],
+                            Cf[:, sl], dyf[:, :, sl], states[:, c], dh)
+        da = g["dcum"] if fault == "cumsum" else reverse_cumsum(g["dcum"])
+        dx[:, :, sl] = g["dx"]
+        ddt[:, :, sl] = g["ddt"] + A.double()[None, :, None] * da
+        dA += (dtf[:, :, sl].double() * da).sum((0, 2))
+        dB[:, sl] = g["dB"][:, 1:].sum(1) if fault == "head" \
+            else g["dB"].sum(1)
+        dC[:, sl] = g["dC"].sum(1)
+        dh = torch.zeros_like(dh) if fault == "carry" else g["dh_prev"]
+    return (dx[:, :, :S].to(x.dtype), ddt[:, :, :S], dA.float(),
+            dB[:, :S].to(B.dtype), dC[:, :S].to(C.dtype))
+
+
+def k3b_case(dev) -> dict:
+    """K3b against its plain version at recurrentgemma-9b's training
+    recurrence (K3B_SHAPE, float32), the plain version's faults, two runs
+    bit-equal; its time, the plain version's, and its byte bound: dh, a and
+    h read, dx and da written, once each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.linear_scan.kernel import (
+        linear_scan_bsd,
+        linear_scan_bwd_bsd,
+        linear_scan_bwd_plain,
+    )
+
+    rng = np.random.default_rng(3)
+    x, dh = (torch.as_tensor(rng.normal(size=K3B_SHAPE), dtype=torch.float32,
+                             device=dev) for _ in range(2))
+    a = torch.as_tensor(rng.uniform(0.1, 1.0, size=K3B_SHAPE),
+                        dtype=torch.float32, device=dev)
+    dfinal = torch.as_tensor(rng.normal(size=(K3B_SHAPE[0], K3B_SHAPE[2])),
+                             dtype=torch.float32, device=dev)
+    h, _ = linear_scan_bsd(x, a)
+    got = linear_scan_bwd_bsd(dh, dfinal, a, h)
+    again = linear_scan_bwd_bsd(dh, dfinal, a, h)
+    want = linear_scan_bwd_plain(dh, dfinal, a, h)
+    torch.cuda.synchronize()
+    res = {"shape": list(K3B_SHAPE), "err": max(max_err(g, w) for g, w in
+                                                zip(got, want)),
+           "rel_err": k4b_f32_err(got, want),
+           "bit_equal": all(bits_equal(g, r) for g, r in zip(got, again)),
+           "fault_rel_err": {f: k4b_f32_err(k3b_planted(dh, dfinal, a, h, f),
+                                            want)
+                             for f in ("dfinal", "unshifted")}}
+    if res["rel_err"] > K3B_TOL or not res["bit_equal"]:
+        fail(f"K3b differs from its plain version or from itself: {res}")
+    missed = [f for f, e in res["fault_rel_err"].items() if e <= K3B_TOL]
+    if missed:
+        fail(f"K3b's limit misses planted faults {missed}: {res}")
+    del got, again, want
+    nbytes = 4 * 5 * h.numel()
+    res.update(ms=cuda_ms(lambda: linear_scan_bwd_bsd(dh, dfinal, a, h), 20),
+               plain_ms=cuda_ms(lambda: linear_scan_bwd_plain(dh, dfinal, a,
+                                                              h), 1),
+               nbytes=nbytes, ops=3 * h.numel())
+    res["bound_ms"], res["bound_by"] = bound(nbytes, res["ops"], "float32")
+    log(f"[k3b] {json.dumps(res)}")
+    return res
+
+
+def k6b_bound(b, H, S, hd, ds, Q, nbytes, bf16):
+    """K6b's bound: its inputs' and outputs' bytes over HBM's rate, or its
+    products by phase 2's rule for K6, whichever is larger. The products
+    this data needs, per (batch, chunk) over the q >= s pairs: C B^T (shared
+    by the heads) and per head dy x^T, both from exact bf16 operands; P^T dy,
+    R B, R^T C, dh_next B, dh_next^T x, and in chunks after the first
+    h_prev^T dy and the chunk's exp(cum) dy (x) C, each with a float32
+    operand (three bf16 products in bf16, as K6's bound counts them)."""
+    exact = prod = 0.0
+    for r0 in range(0, S, Q):
+        qc = min(Q, S - r0)
+        tri = qc * (qc + 1) / 2
+        exact += b * 2 * tri * ds + b * H * 2 * tri * hd
+        prod += b * H * (2 * tri * hd + 4 * tri * ds + 4 * qc * hd * ds)
+        if r0:
+            prod += b * H * 4 * qc * hd * ds
+    return exact + prod, ssd_bound(nbytes, exact, prod, bf16)
+
+
+def k6b_case(inputs, chunk, dtype, reps, faults=()) -> dict:
+    """K6b against its plain version on mamba2-780m's layer inputs, called
+    as ``SSDScanFn`` calls it (K6's workspace of chunk states, strided views,
+    dx a transposed view), with a cotangent dy drawn N(0, 1) and a final
+    state's drawn N(0, 1): float32 within K6B_TOL of max(1, |grad|), bf16
+    rows within K4B_ROW_TOL of their largest |grad| and the planted
+    ``faults`` outside it; two runs bit-equal; its time, its plain
+    version's, its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_bwd_bhsd,
+        ssd_scan_bwd_plain,
+        work_floats,
+    )
+
+    xs, dt, A, B, C = inputs
+    dev = xs.device
+    x, B, C = xs.to(dtype).transpose(1, 2), B.to(dtype), C.to(dtype)
+    dtt = dt.transpose(1, 2)
+    b, H, S, hd = x.shape
+    ds = B.shape[-1]
+    rng = np.random.default_rng(5)
+    dy = torch.as_tensor(rng.normal(size=(b, S, H, hd)), dtype=torch.float32,
+                         device=dev).to(dtype).transpose(1, 2)
+    dstate = torch.as_tensor(rng.normal(size=(b, H, hd, ds)),
+                             dtype=torch.float32, device=dev)
+    work = torch.empty(work_floats(b, H, S, hd, ds, chunk),
+                       dtype=torch.float32, device=dev)
+    ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk, work=work)
+
+    def kernel():
+        dx = torch.empty((b, S, H, hd), dtype=dtype,
+                         device=dev).transpose(1, 2)
+        return ssd_scan_bwd_bhsd(x, dtt, A, B, C, dy, dstate, chunk=chunk,
+                                 work=work, dx=dx)
+
+    got, again = kernel(), kernel()
+    want = ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate, chunk=chunk)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    rows = lambda r: (r[0], r[1], r[2][None], r[3], r[4])  # noqa: E731
+    res = {"err": max(max_err(g, w) for g, w in zip(got, want)),
+           "bit_equal": all(bits_equal(g, r) for g, r in zip(got, again)),
+           "grad_max": {n: float(w.float().abs().max()) for n, w in
+                        zip(("dx", "ddt", "dA", "dB", "dC"), want)}}
+    if dtype == torch.float32:
+        res["rel_err"] = k4b_f32_err(got, want)
+        ok = res["rel_err"] <= K6B_TOL
+    else:
+        res["row_err"] = k4b_row_err(rows(got), rows(want))
+        ok = res["row_err"] <= K4B_ROW_TOL
+        res["fault_row_err"] = {
+            f: k4b_row_err(rows(k6b_planted(x, dtt, A, B, C, dy, dstate,
+                                            chunk, f)), rows(want))
+            for f in faults}
+        missed = [f for f, e in res["fault_row_err"].items()
+                  if e <= K4B_ROW_TOL]
+        if missed:
+            fail(f"K6b's bf16 row limit misses planted faults {missed}: "
+                 f"{res}")
+    if not ok or not res["bit_equal"]:
+        fail(f"K6b b={b} S={S} {name} differs from its plain version or from "
+             f"itself: {res}")
+    del got, again, want
+    el = x.element_size()
+    nbytes = el * (3 * x.numel() + 4 * B.numel()) + 4 * 2 * dt.numel() \
+        + 4 * 2 * A.numel() + 4 * dstate.numel()
+    ops, (b_ms, b_by) = k6b_bound(b, H, S, hd, ds, min(chunk, S), nbytes,
+                                  dtype == torch.bfloat16)
+    res.update(ms=cuda_ms(kernel, reps),
+               plain_ms=cuda_ms(lambda: ssd_scan_bwd_plain(
+                   x, dtt, A, B, C, dy, dstate, chunk=chunk), 2),
+               k6_ms=cuda_ms(lambda: ssd_scan_bhsd(x, dtt, A, B, C,
+                                                   chunk=chunk, work=work),
+                             reps),
+               nbytes=nbytes, ops=ops, bound_ms=b_ms, bound_by=b_by)
+    log(f"[k6b] b={b} S={S} {name}: {json.dumps(res)}")
+    return res
+
+
 def phase_train(dev, card) -> dict:
     """(a) K4b against its plain version and SDPA at llama3.2-1b's and
-    recurrentgemma-9b's training shapes; (b) a float32 step on the card
-    against the CPU; (c) the slice, llama3.2-1b trained at full width;
-    (d) determinism and restart. Returns K4b's row and the slice's
-    launches."""
+    recurrentgemma-9b's training shapes; (a') K3b and K6b against theirs at
+    the slices' shapes; (b) float32 steps on the card against the CPU,
+    llama, mamba and Griffin; (c) the slices: llama3.2-1b and mamba2-780m
+    trained at full width and depth, recurrentgemma-9b at full width and 3
+    layers; (d) determinism and restart. Returns the rows of K4b, K3b and
+    K6b and the slices' launches."""
     import gc
 
     import torch
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
     log(f"[train] {card}")
     bf16, f32 = torch.bfloat16, torch.float32
     llama = k4b_case(TRAIN_ATTN, bf16, dev, True, 0, 10, ("delta", "gqa"))
@@ -2737,13 +3036,33 @@ def phase_train(dev, card) -> dict:
                                         5, ("delta", "window", "gqa")),
               "griffin_s4096_f32": k4b_case(GRIFFIN_ATTN, f32, dev, True,
                                             WINDOW, 2)}
-    step = train_step_check(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sl = slice_run(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
+    k3b = k3b_case(dev)
+    free()
+    inputs, chunk = ssd_layer_inputs(dev, ((SSM_TRAIN_B, SSM_TRAIN_S),))
+    layer = inputs[(SSM_TRAIN_B, SSM_TRAIN_S)]
+    k6b = k6b_case(layer, chunk, bf16, 5, ("cumsum", "carry", "head"))
+    k6b_f32 = k6b_case(layer, chunk, f32, 3)
+    del inputs, layer
+    free()
+    steps = [train_step_check(dev, ARCH, STEP_LAYERS, STEP_B, STEP_S,
+                              adamw=True)]
+    free()
+    steps.append(train_step_check(dev, SSM_ARCH, SSM_STEP_LAYERS, STEP_B,
+                                  SSM_STEP_S))
+    free()
+    steps.append(train_step_check(dev, HYBRID_ARCH, HYBRID_STEP_LAYERS,
+                                  STEP_B, HYBRID_STEP_S))
+    free()
+    slices = [slice_run(dev, ARCH, TRAIN_B, TRAIN_S)]
+    free()
+    slices.append(slice_run(dev, SSM_ARCH, SSM_TRAIN_B, SSM_TRAIN_S))
+    free()
+    slices.append(slice_run(dev, HYBRID_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S,
+                            HYBRID_TRAIN_LAYERS))
+    free()
     rs = restart_check(dev)
+    sl, ssm, hyb = slices
     extra = {key: llama[key] for key in
              ("row_err", "fault_row_err", "k4_ms", "lse_err", "nsplit",
               "tflops", "run_tflops")}
@@ -2756,22 +3075,67 @@ def phase_train(dev, card) -> dict:
                        "nsplit", "row_err", "rel_err", "fault_row_err")
                       if key in c})
     extra["train_median_step_ms"] = sl["median_step_ms"]
-    extra["train_step_k4b_ms"] = sl["split_ms"]["k4b_kernels"]
+    extra["train_step_k4b_ms"] = {k: v for k, v in
+                                  sl["split_ms"]["bwd_kernels"].items()
+                                  if "fa_bwd" in k}
     extra["train_launches_per_step"] = sl["per_step"]["flash_attention_bwd"]
-    k4b = row("flash_attention_bwd",
-              "src/repro_torch/csrc/flash_attention_bwd.cu",
-              "none; the reference differentiates its XLA chunked attention, "
-              "src/repro/modeling/attention.py:50",
-              llama["ms"], llama["plain_ms"], llama["err"], llama["nbytes"],
-              llama["ops"], "bfloat16", library_ms=llama["library_ms"],
-              shape="q/o/do (2, 32, 2048, 64) k/v (2, 8, 2048, 64) bf16 "
-                    "causal (llama3.2-1b's training step; f32: the same in "
-                    "float32); griffin_s4096: q (1, 16, 4096, 256) k/v "
-                    "(1, 1, 4096, 256) causal, window 2048 "
-                    "(recurrentgemma-9b), bf16 and float32",
-              **extra)
-    return {"row": k4b, "launches": sl["launches"], "step": step,
-            "slice": sl, "restart": rs}
+    extra["griffin_train_launches_per_step"] = \
+        hyb["per_step"]["flash_attention_bwd"]
+    rows = [row("flash_attention_bwd",
+                "src/repro_torch/csrc/flash_attention_bwd.cu",
+                "none; the reference differentiates its XLA chunked "
+                "attention, src/repro/modeling/attention.py:50",
+                llama["ms"], llama["plain_ms"], llama["err"], llama["nbytes"],
+                llama["ops"], "bfloat16", library_ms=llama["library_ms"],
+                shape="q/o/do (2, 32, 2048, 64) k/v (2, 8, 2048, 64) bf16 "
+                      "causal (llama3.2-1b's training step; f32: the same in "
+                      "float32); griffin_s4096: q (1, 16, 4096, 256) k/v "
+                      "(1, 1, 4096, 256) causal, window 2048 "
+                      "(recurrentgemma-9b), bf16 and float32",
+                **extra)]
+    rows.append(row(
+        "linear_scan_bwd", "src/repro_torch/csrc/linear_scan.cu",
+        "none; the reference differentiates its XLA associative scan, "
+        "src/repro/modeling/rglru.py:74",
+        k3b["ms"], k3b["plain_ms"], k3b["err"], k3b["nbytes"], k3b["ops"],
+        "float32", rel_err=k3b["rel_err"], f32_tol=K3B_TOL,
+        bit_equal=k3b["bit_equal"], fault_rel_err=k3b["fault_rel_err"],
+        train_launches_per_step=hyb["per_step"]["linear_scan_bwd"],
+        train_step_k3b_ms={k: v for k, v in
+                           hyb["split_ms"]["bwd_kernels"].items()
+                           if "chunk_bwd" in k},
+        shape="dh/a/h (1, 4096, 4096) float32 (recurrentgemma-9b's "
+              "training recurrence: B=1, S=4096, d_rnn 4096; 32 chunks of "
+              "128), dfinal (1, 4096)"))
+    rows.append(row(
+        "ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "none; the reference differentiates its XLA chunked SSD, "
+        "src/repro/modeling/ssd.py:61",
+        k6b["ms"], k6b["plain_ms"], k6b["err"], k6b["nbytes"], k6b["ops"],
+        "bfloat16", bound_at=(k6b["bound_ms"], k6b["bound_by"]),
+        row_err=k6b["row_err"], row_tol=K4B_ROW_TOL,
+        fault_row_err=k6b["fault_row_err"], bit_equal=k6b["bit_equal"],
+        k6_ms=k6b["k6_ms"], f32_tol=K6B_TOL,
+        **{f"f32_{k}": k6b_f32[k] for k in ("ms", "plain_ms", "err",
+                                             "rel_err", "bound_ms",
+                                             "bound_by", "bit_equal",
+                                             "k6_ms")},
+        train_launches_per_step=ssm["per_step"]["ssd_scan_bwd"],
+        train_step_k6b_ms=ssm["split_ms"]["bwd_kernels"],
+        shape="x/dy/dx (2, 48, 2048, 64) B/C/dB/dC (2, 2048, 128) bf16, dt "
+              "(2, 48, 2048) float32, 16 chunks of 128 (mamba2-780m's "
+              "training step; inputs from its first layer at full width, "
+              "dy and the final state's cotangent N(0, 1)); f32: the same "
+              "in float32",
+        rate="bf16: every product at the bf16 tensor-core rate, those with "
+             "a float32 operand counted three times; f32: all at the "
+             "float32 rate (the kernel runs on the CUDA cores in both)"))
+    launches = {}
+    for s_ in slices:
+        for name, n in s_["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return {"rows": rows, "launches": launches, "steps": steps,
+            "slices": slices, "restart": rs}
 
 
 def np_equal(a, b) -> bool:

@@ -39,7 +39,8 @@
 //     earlier chunks' (h, prod a) pairs (a short sequential loop), then fold
 //     the chunk again from that carry, writing y, and the last chunk writes
 //     the final state. What bounds it: bytes (x and a read twice, y written
-//     once, against a bound that reads each once).
+//     once, against a bound that reads each once). Its backward (b'), K3b,
+//     runs the same two passes in reverse time.
 //
 // Each multiply and add is rounded on its own (no FMA: the file is built
 // with -fmad=false and uses the _rn intrinsics), so a == 1 reproduces a
@@ -305,6 +306,100 @@ chunk_apply_kernel(const float* __restrict__ x, const float* __restrict__ a,
   if (c == nC - 1) state[(size_t)b * D + d] = h;
 }
 
+// ------------------------------------------- (b') the chunked scan's backward
+// K3b: for the cotangents dh of h and dfinal of the final state, the fold
+// g_t = dh_t + a_{t+1} g_{t+1} from g_{S-1} = dh_{S-1} + dfinal, backwards
+// over S, and dx_t = g_t, da_t = g_t h_{t-1} (h_{-1} = 0). The chunked
+// forward's two passes in reverse time, a read through its index one row
+// later (never a flipped copy):
+//   pass 1, per (b, chunk, column): fold the chunk backwards from g = 0
+//   and keep a_{r0} g_{r0} and the product of the chunk's a's: the pair
+//   that carries a gradient through the chunk into the one before it;
+//   pass 2: carry g in from the later chunks' pairs (from dfinal), fold the
+//   chunk again from there and write dx and da = g h_{t-1} (the forward's
+//   saved h read one row back) in the same pass.
+// What bounds it: bytes (dh and a read twice, h once, dx and da written
+// once, against a bound that reads and writes each once).
+
+// Fold rows [r0, r1) of column col backwards from the carry g (rows past
+// r1 enter through it). With dx == nullptr keep nothing and return
+// a_{r0} g_{r0} and the product of the a's in *prod; else write dx and da.
+__device__ __forceinline__ float chunk_fold_bwd(const float* __restrict__ dh,
+                                                const float* __restrict__ a,
+                                                const float* __restrict__ h, float* dx,
+                                                float* da, size_t col, int D, int r0,
+                                                int r1, float g, float* prod) {
+  float p = 1.f, an = 1.f;  // an: a of the row after the current one
+  int r = r1;
+  for (; r - CHUNK_AHEAD >= r0; r -= CHUNK_AHEAD) {
+    float dv[CHUNK_AHEAD], av[CHUNK_AHEAD], hv[CHUNK_AHEAD];
+#pragma unroll
+    for (int u = 0; u < CHUNK_AHEAD; ++u) {
+      const size_t o = col + (size_t)(r - 1 - u) * D;
+      dv[u] = dh[o];
+      av[u] = a[o];
+      hv[u] = (dx && r - 2 - u >= 0) ? h[o - D] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < CHUNK_AHEAD; ++u) {
+      g = add_rn(mul_rn(an, g), dv[u]);
+      if (dx) {
+        const size_t o = col + (size_t)(r - 1 - u) * D;
+        dx[o] = g;
+        da[o] = mul_rn(g, hv[u]);
+      }
+      an = av[u];
+      p = mul_rn(p, an);
+    }
+  }
+  for (; r > r0; --r) {
+    const size_t o = col + (size_t)(r - 1) * D;
+    g = add_rn(mul_rn(an, g), dh[o]);
+    if (dx) {
+      dx[o] = g;
+      da[o] = mul_rn(g, r - 1 > 0 ? h[o - D] : 0.f);
+    }
+    an = a[o];
+    p = mul_rn(p, an);
+  }
+  if (prod) *prod = p;
+  return mul_rn(an, g);
+}
+
+// pass 1: per (b, chunk, column) the pair (a_{r0} g_{r0} from 0, prod a);
+// summary layout (2, B, nC, D) as the forward's
+__global__ void __launch_bounds__(CHUNK_THREADS)
+chunk_bwd_summary_kernel(const float* __restrict__ dh, const float* __restrict__ a,
+                         float* __restrict__ summary, int B, int S, int D, int L) {
+  const int d = blockIdx.x * CHUNK_THREADS + threadIdx.x;
+  const int c = blockIdx.y, b = blockIdx.z, nC = gridDim.y;
+  if (d >= D || c == 0) return;  // the first chunk's pair is never read
+  float p;
+  const float g = chunk_fold_bwd(dh, a, nullptr, nullptr, nullptr, (size_t)b * S * D + d, D,
+                                 c * L, min(S, (c + 1) * L), 0.f, &p);
+  const size_t o = ((size_t)b * nC + c) * D + d;
+  summary[o] = g;
+  summary[(size_t)B * nC * D + o] = p;
+}
+
+// pass 2: carry g into the chunk from dfinal through the later chunks'
+// pairs, fold it again from there, write dx and da
+__global__ void __launch_bounds__(CHUNK_THREADS)
+chunk_bwd_apply_kernel(const float* __restrict__ dh, const float* __restrict__ dfinal,
+                       const float* __restrict__ a, const float* __restrict__ h,
+                       const float* __restrict__ summary, float* __restrict__ dx,
+                       float* __restrict__ da, int B, int S, int D, int L) {
+  const int d = blockIdx.x * CHUNK_THREADS + threadIdx.x;
+  const int c = blockIdx.y, b = blockIdx.z, nC = gridDim.y;
+  if (d >= D) return;
+  const size_t sb = (size_t)b * nC * D + d, plane = (size_t)B * nC * D;
+  float g = dfinal ? dfinal[(size_t)b * D + d] : 0.f;
+  for (int j = nC - 1; j > c; --j)
+    g = add_rn(mul_rn(summary[plane + sb + (size_t)j * D], g), summary[sb + (size_t)j * D]);
+  chunk_fold_bwd(dh, a, h, dx, da, (size_t)b * S * D + d, D, c * L, min(S, (c + 1) * L), g,
+                 nullptr);
+}
+
 // ------------------------------------------------------ the chain's floor
 __global__ void chain_floor_kernel(double inc, int n, double* out) {
   double h = 0.0;
@@ -343,6 +438,26 @@ int linear_scan_chunked_f32(const float* x, const float* a, float* y, float* sta
     if (e != cudaSuccess) return (int)e;
   }
   chunk_apply_kernel<<<grid, CHUNK_THREADS, 0, s>>>(x, a, summary, y, state, B, S, D, L);
+  return (int)cudaGetLastError();
+}
+
+// (b'): K3b; dfinal may be NULL (zero); summary is scratch of 2 * B *
+// max(1, ceil(S / L)) * D floats
+int linear_scan_chunked_bwd_f32(const float* dh, const float* dfinal, const float* a,
+                                const float* h, float* dx, float* da, float* summary, int B,
+                                int S, int D, int L, void* stream) {
+  if ((long long)B * D * S == 0) return 0;
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int nC = (S + L - 1) / L;
+  const dim3 grid((D + CHUNK_THREADS - 1) / CHUNK_THREADS, nC, B);
+  if (nC > 1) {
+    chunk_bwd_summary_kernel<<<grid, CHUNK_THREADS, 0, s>>>(dh, a, summary, B, S, D, L);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  chunk_bwd_apply_kernel<<<grid, CHUNK_THREADS, 0, s>>>(dh, dfinal, a, h, summary, dx, da, B, S,
+                                                        D, L);
   return (int)cudaGetLastError();
 }
 

@@ -5,18 +5,18 @@ Each ``<name>/kernel.py`` holds the launch wrapper of a CUDA kernel from
 version only for tensors on the CPU; for CUDA tensors it launches the kernel
 or raises; where autograd would need a gradient through a CUDA launch,
 a wrapper goes through an ``autograd.Function`` whose backward is a kernel
-(K4, ``flash_attention``) or raises ``NotImplementedError`` before it
-launches (the kernels without a backward yet), so no gradient is dropped
-silently. Every wrapper counts its launches in a plain integer attribute
+(K4 with K4b, K3's chunked regime with K3b, K6 with K6b) or raises
+``NotImplementedError`` before it launches (the kernels without a
+backward), so no gradient is dropped silently. Every wrapper counts its launches in a plain integer attribute
 ``launches`` (incremented where the kernel is launched and nowhere else);
 ``launch_counts``/``reset_launch_counts`` read and zero them all.
 ``recording`` tallies the launches of one thread alone, as a CUDA-graph
 capture needs while other threads launch kernels of their own; its blocks
 nest. A backward pass on the card runs on autograd's own device thread:
-K4's Function keeps the tally open where its forward ran and counts K4b
-there, and a checkpointed layer (``carry_recording``) runs its recompute,
-K4's relaunch, in that tally too, so a block around ``loss.backward()``
-sees both.
+each Function keeps the tally open where its forward ran and counts its
+backward kernel there, and a checkpointed layer (``carry_recording``) runs
+its recompute, the forward kernels' relaunch, in that tally too, so a block
+around ``loss.backward()`` sees both.
 
 Importing this package imports torch only: the kernels are compiled
 (``_build``) the first time a wrapper meets a CUDA tensor.
@@ -41,8 +41,14 @@ def wrappers() -> dict:
         gbrt_predict_blocked,
         gbrt_predict_multi,
     )
-    from repro_torch.kernels.linear_scan.kernel import linear_scan_bsd
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhsd
+    from repro_torch.kernels.linear_scan.kernel import (
+        linear_scan_bsd,
+        linear_scan_bwd_bsd,
+    )
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_bwd_bhsd,
+    )
     from repro_torch.kernels.state_replay.kernel import (
         state_replay,
         state_walk,
@@ -51,12 +57,14 @@ def wrappers() -> dict:
     return {"gbrt_predict_multi": gbrt_predict_multi,
             "gbrt_predict_blocked": gbrt_predict_blocked,
             "linear_scan": linear_scan_bsd,
+            "linear_scan_bwd": linear_scan_bwd_bsd,
             "state_replay": state_replay,
             "state_walk": state_walk,
             "flash_attention": flash_attention_bhsd,
             "flash_attention_bwd": flash_attention_bwd_bhsd,
             "decode_attention": decode_attention_bhd,
-            "ssd_scan": ssd_scan_bhsd}
+            "ssd_scan": ssd_scan_bhsd,
+            "ssd_scan_bwd": ssd_scan_bwd_bhsd}
 
 
 def launch_counts() -> dict[str, int]:
@@ -76,8 +84,9 @@ def reset_launch_counts() -> None:
 def recording():
     """Tally, by kernel name, the launches that the calling thread makes
     inside the block, and those counted for it on other threads (K4b's,
-    which autograd's device thread launches for the ``FlashAttentionFn``
-    whose forward ran in the block; a ``carry_recording`` function's);
+    K3b's and K6b's, which autograd's device thread launches for the
+    Function whose forward ran in the block; a ``carry_recording``
+    function's);
     other launches of other threads are not seen. Yields the dict, filled
     when the block ends. Blocks nest: the launches of an inner block count
     in every block around it too. A launch counted for a block that has
@@ -105,7 +114,8 @@ def carry_recording(fn):
     """``fn`` bound to the ``recording`` block open on the calling thread
     now, if any: every later call, on whatever thread, tallies its
     launches there. For work that autograd replays on its own device
-    thread, as a checkpointed layer's recompute (K4 launched again) is."""
+    thread, as a checkpointed layer's recompute (K3, K4 or K6 launched
+    again) is."""
     from repro_torch.kernels import _build
 
     tally = _build.current_tally()

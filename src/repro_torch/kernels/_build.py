@@ -42,7 +42,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gbrt_predict", "linear_scan", "state_replay", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "ssd_scan")
+           "flash_attention_bwd", "decode_attention", "ssd_scan",
+           "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # sources free to contract a multiply and an add into an FMA
@@ -204,15 +205,14 @@ def needs_grad(*tensors) -> bool:
 
 def refuse_grad(what: str, *tensors) -> None:
     """Raise ``NotImplementedError`` before a launch that autograd would have
-    to differentiate through, for a kernel with no backward kernel yet: its
+    to differentiate through, for a kernel with no backward kernel: its
     output is written through ctypes and has no ``grad_fn``, so a backward
     pass would silently give no gradient to anything behind it. CPU tensors
     never get here (their plain versions are differentiable)."""
     if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{what}: the kernel has no backward on the card yet (it comes "
-            "with a later slice of the port); call it under torch.no_grad() "
-            "or on tensors that do not require a gradient")
+            f"{what}: the kernel has no backward on the card; call it under "
+            "torch.no_grad() or on tensors that do not require a gradient")
 
 
 def check(rc: int, what: str) -> None:

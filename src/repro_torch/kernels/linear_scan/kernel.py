@@ -16,6 +16,13 @@ is given, never from the shape (``scan_regime``):
 
 The plain version steps through S with one rounded multiply and one rounded
 add per step.
+
+The chunked regime has a backward, K3b (``linear_scan_bwd_bsd``, its plain
+version ``linear_scan_bwd_plain``): from the cotangents ``dh`` of h and
+``dfinal`` of the final state it folds ``g_t = dh_t + a_{t+1} g_{t+1}``
+backwards from ``g_{S-1} = dh_{S-1} + dfinal`` and gives ``dx_t = g_t`` and
+``da_t = g_t h_{t-1}`` (``h_{-1} = 0``). ``ops.LinearScanFn`` puts K3 and K3b
+on the two sides of autograd; the fold regime has no backward on the card.
 """
 
 from __future__ import annotations
@@ -49,9 +56,15 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
 
     CPU tensors take the plain version; CUDA tensors launch
     ``linear_scan_fold_{f32,f64}`` or ``linear_scan_chunked_f32`` (by
-    ``scan_regime``) or raise."""
+    ``scan_regime``) or raise. Where autograd needs a gradient through a
+    chunked call on the card it goes through ``ops.LinearScanFn`` (forward
+    K3, backward K3b); the fold regime refuses it."""
     if x.device.type == "cpu":
         return linear_scan_plain(x, a)
+    if scan_regime(x, a) == "chunked" and _build.needs_grad(x, a):
+        from repro_torch.kernels.linear_scan.ops import LinearScanFn
+
+        return LinearScanFn.apply(x, a)
     _build.refuse_grad("linear_scan", x, a)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"linear_scan takes float32 or float64, got {x.dtype}")
@@ -87,3 +100,67 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
 
 
 linear_scan_bsd.launches = 0
+
+
+def linear_scan_bwd_plain(dh, dfinal, a, h):
+    """The gradient of the gated scan as a fold backwards over S, on any
+    device: ``g = carry + dh_t``, ``dx_t = g``, ``da_t = g * h_{t-1}``, then
+    ``carry = a_t * g``, from ``carry = dfinal`` (zero when None). ``dh``,
+    ``a`` and the forward's ``h`` are (B, S, D). Returns (dx, da)."""
+    B, S, D = h.shape
+    dx = torch.empty_like(h)
+    da = torch.empty_like(h)
+    carry = torch.zeros((B, D), dtype=h.dtype, device=h.device) \
+        if dfinal is None else dfinal
+    for t in range(S - 1, -1, -1):
+        g = carry + dh[:, t]
+        dx[:, t] = g
+        da[:, t] = g * h[:, t - 1] if t else 0.0
+        carry = a[:, t] * g
+    return dx, da
+
+
+def linear_scan_bwd_bsd(dh, dfinal, a, h, *, tally=None):
+    """K3b: (dx, da) of the chunked scan for the cotangents ``dh`` (B, S, D)
+    and ``dfinal`` (B, D) or None, from the forward's ``a`` and its output
+    ``h``; see the module docstring.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``linear_scan_chunked_bwd_f32`` (two passes: one call, one count) or
+    raise. The launch is counted in ``tally`` when given (``LinearScanFn``
+    passes the ``recording`` tally open where its forward ran), else in the
+    calling thread's."""
+    if h.device.type == "cpu":
+        return linear_scan_bwd_plain(dh, dfinal, a, h)
+    _build.refuse_grad("linear_scan_bwd", dh, dfinal, a, h)
+    for name, t in (("dh", dh), ("a", a), ("h", h)):
+        if t.dtype != torch.float32 or t.dim() != 3 \
+                or t.shape != h.shape or t.device != h.device \
+                or not t.is_contiguous():
+            raise ValueError(f"linear_scan_bwd: {name} must be a contiguous "
+                             f"float32 (B, S, D) tensor like h on "
+                             f"{h.device}, got {t.dtype} {tuple(t.shape)}")
+    B, S, D = h.shape
+    if dfinal is not None and (dfinal.dtype != torch.float32
+                               or dfinal.shape != (B, D)
+                               or dfinal.device != h.device
+                               or not dfinal.is_contiguous()):
+        raise ValueError(f"linear_scan_bwd: dfinal must be a contiguous "
+                         f"float32 ({B}, {D}) tensor, got {dfinal.dtype} "
+                         f"{tuple(dfinal.shape)}")
+    dx = torch.empty_like(h)
+    da = torch.empty_like(h)
+    n_chunks = max(1, -(-S // CHUNK_ROWS))
+    summary = torch.empty((2, B, n_chunks, D), dtype=h.dtype, device=h.device)
+    P, I32 = _build.P, _build.I32
+    fn = _build.function("linear_scan", "linear_scan_chunked_bwd_f32",
+                         [P] * 7 + [I32] * 4 + [P])
+    rc = fn(_build.ptr(dh), _build.ptr(dfinal), _build.ptr(a), _build.ptr(h),
+            _build.ptr(dx), _build.ptr(da), _build.ptr(summary), B, S, D,
+            CHUNK_ROWS, _build.stream_of(h))
+    _build.check(rc, "linear_scan_bwd")
+    _build.counted(linear_scan_bwd_bsd, tally)
+    return dx, da
+
+
+linear_scan_bwd_bsd.launches = 0

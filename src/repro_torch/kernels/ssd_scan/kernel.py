@@ -32,7 +32,34 @@ projection pass in without copies, and ``out`` may be such a view too. A
 prompt of one chunk of at most 64 rows (the serving prefill) is one launch
 with no workspace; a longer one runs its chunks in parallel in three
 launches over a float32 workspace of every chunk's state (``ssd_route``,
-``work_floats``).
+``work_floats``); a caller that passes that workspace (``work=``) keeps in
+it, after the call, the state entering each chunk.
+
+The backward, K6b (``ssd_scan_bwd_bhsd``, CUDA source
+``repro_torch/csrc/ssd_scan_bwd.cu``; its plain version
+``ssd_scan_bwd_plain``), takes the cotangents ``dy`` of y and ``dstate`` of
+the final state (zero when None) and gives (dx, ddt, dA, dB, dC) by explicit
+formulas, chunk by chunk from the last, as Mamba-2's chunked backward does.
+Per chunk, with ``L_qs = exp(cum_q - cum_s)`` for s <= q, ``W_qs = L_qs
+dt_s``, ``e_s = exp(total - cum_s)``, h_prev / h_next the states entering
+and leaving the chunk and dh_next the gradient of h_next (the later chunk's
+dh_prev; the last chunk's is ``dstate``) (``ssd_chunk_grads``):
+
+    dh_prev = exp(total) dh_next + sum_q exp(cum_q) dy_q (x) C_q
+    dx_s    = sum_q (C_q.B_s) W_qs dy_q + e_s dt_s dh_next B_s
+    dC_q    = sum_s (dy_q.x_s) W_qs B_s + exp(cum_q) h_prev^T dy_q
+    dB_s    = sum_q (dy_q.x_s) W_qs C_q + e_s dt_s dh_next^T x_s
+
+dB and dC summed over the heads (B and C are shared by all of them); dt's
+direct part ``sum_q (dy_q.x_s)(C_q.B_s) L_qs + e_s x_s.(dh_next B_s)``, and
+``dcum``, the gradient of cum through L, ``exp(cum_q)``, ``exp(total)`` and
+``e_s``, reverse-summed within the chunk into ``da``, the gradient of ``dt
+A``: ``ddt += A da``, ``dA = sum dt da``. The sums over the scores that
+feed ``dcum`` and dt's direct part, ``dcum``'s reverse sum and dA run in
+float64 (as cum is summed): the reverse sum cancels the terms that both a
+row's and a column's sum hold, exactly in float64, where float32 would
+leave their roundings behind (up to 1e-4 of a gradient at mamba2-780m's
+widths); the rest runs in float32 from widened inputs.
 """
 
 from __future__ import annotations
@@ -50,39 +77,60 @@ SINGLE_MAX_ROWS = 64  # the longest one-chunk prompt that takes one launch
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _padded_chunks(t, Q, axis):
+    """float32 ``t`` zero-padded along ``axis`` to a multiple of Q."""
+    t = t.float()
+    pad = (-t.shape[axis]) % Q
+    if pad:
+        widths = [0, 0] * (t.dim() - 1 - axis) + [0, pad]
+        t = F.pad(t, widths)
+    return t
+
+
+def _states(xf, dtf, A, Bf, Q):
+    """The plain version's state update over padded float32 chunks: the
+    state entering each chunk (a list, chunk 0's zero) and the final
+    state."""
+    b, H, _, hd = xf.shape
+    a = A.float()[None, :, None]
+    h = torch.zeros((b, H, hd, Bf.shape[-1]), dtype=torch.float32,
+                    device=xf.device)
+    states = []
+    for c0 in range(0, xf.shape[2], Q):
+        states.append(h)
+        xc, dtc = xf[:, :, c0:c0 + Q], dtf[:, :, c0:c0 + Q]
+        cum = torch.cumsum((dtc * a).double(), dim=-1).float()
+        total = cum[..., -1:]
+        w = dtc * torch.exp(total - cum)
+        h = h * torch.exp(total)[..., None] \
+            + (xc * w[..., None]).transpose(2, 3) @ Bf[:, None, c0:c0 + Q]
+    return states, h
+
+
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
     """The chunked SSD of the module docstring on any device, one chunk at a
     time over every (batch, head). Returns (y (b, H, S, hd) in x's dtype,
     final state (b, H, hd, ds) float32)."""
-    b, H, S, hd = x.shape
-    ds = B.shape[-1]
+    S = x.shape[2]
     Q = min(chunk, S)
-    pad = (-S) % Q
-    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
-    if pad:
-        xf = F.pad(xf, (0, 0, 0, pad))
-        dtf = F.pad(dtf, (0, pad))
-        Bf = F.pad(Bf, (0, 0, 0, pad))
-        Cf = F.pad(Cf, (0, 0, 0, pad))
+    xf, dtf = _padded_chunks(x, Q, 2), _padded_chunks(dt, Q, 2)
+    Bf, Cf = _padded_chunks(B, Q, 1), _padded_chunks(C, Q, 1)
+    states, h = _states(xf, dtf, A, Bf, Q)
     a = A.float()[None, :, None]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    h = torch.zeros((b, H, hd, ds), dtype=torch.float32, device=x.device)
     ys = []
-    for c0 in range(0, S + pad, Q):
+    for c, c0 in enumerate(range(0, xf.shape[2], Q)):
         xc = xf[:, :, c0:c0 + Q]                    # (b, H, Q, hd)
         dtc = dtf[:, :, c0:c0 + Q]                  # (b, H, Q)
         bc = Bf[:, c0:c0 + Q]                       # (b, Q, ds)
         cc = Cf[:, c0:c0 + Q]
         cum = torch.cumsum((dtc * a).double(), dim=-1).float()
-        total = cum[..., -1:]
         seg = cum[..., :, None] - cum[..., None, :]
         L = torch.exp(torch.where(causal, seg, NEG_INF))
         scores = (cc @ bc.transpose(1, 2))[:, None] * L * dtc[..., None, :]
         yc = scores @ xc
-        yc = yc + (cc[:, None] @ h.transpose(2, 3)) * torch.exp(cum)[..., None]
-        w = dtc * torch.exp(total - cum)
-        h = h * torch.exp(total)[..., None] \
-            + (xc * w[..., None]).transpose(2, 3) @ bc[:, None]
+        yc = yc + (cc[:, None] @ states[c].transpose(2, 3)) \
+            * torch.exp(cum)[..., None]
         ys.append(yc)
     y = torch.cat(ys, dim=2)[:, :, :S]
     return y.to(x.dtype), h
@@ -141,17 +189,30 @@ def _check(x, dt, A, B, C, out, Q):
                          f"got S={S} Q={Q}")
 
 
-def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None):
+def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None,
+                  work=None):
     """The SSD scan of ``x`` (b, H, S, hd); see the module docstring.
-    Returns (y, final state); y is ``out`` when given.
+    Returns (y, final state); y is ``out`` when given. A given ``work``
+    (float32, ``work_floats`` long, on the chunked route) is the kernel's
+    workspace: after the call it holds the state entering each chunk
+    ((b, nch, H, hd, ds) first), which K6b reads.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``ssd_scan_{f32,bf16}`` (one kernel on the single route, three on the
-    chunked one: one call, one count) or raise."""
+    chunked one: one call, one count) or raise. Where autograd needs a
+    gradient through the call on the card it goes through
+    ``ops.SSDScanFn`` (forward K6, backward K6b), which writes no ``out``
+    in place."""
     if x.device.type == "cpu":
         y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         return (y if out is None else out.copy_(y)), state
-    _build.refuse_grad("ssd_scan", x, dt, A, B, C)
+    if _build.needs_grad(x, dt, A, B, C):
+        if out is not None or work is not None:
+            raise ValueError("ssd_scan: no in-place out= or work= under "
+                             "autograd")
+        from repro_torch.kernels.ssd_scan.ops import SSDScanFn
+
+        return SSDScanFn.apply(x, dt, A, B, C, chunk)
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     b, H, S, hd = x.shape
@@ -160,8 +221,14 @@ def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None):
     _check(x, dt, A, B, C, out, Q)
     state = torch.empty((b, H, hd, ds), dtype=torch.float32, device=x.device)
     nw = work_floats(b, H, S, hd, ds, chunk)
-    work = torch.empty(nw, dtype=torch.float32, device=x.device) if nw \
-        else None
+    if work is None:
+        work = torch.empty(nw, dtype=torch.float32, device=x.device) if nw \
+            else None
+    elif not nw or work.dtype != torch.float32 or work.numel() != nw \
+            or work.device != x.device or not work.is_contiguous():
+        raise ValueError(f"ssd_scan: work must be a contiguous float32 "
+                         f"tensor of work_floats = {nw} on the chunked "
+                         f"route, got {work.dtype} {tuple(work.shape)}")
     vals = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
             *out.stride()[:3]]
     P, I32 = _build.P, _build.I32
@@ -177,3 +244,206 @@ def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None):
 
 
 ssd_scan_bhsd.launches = 0
+
+
+BWD_MAX_HD, BWD_MAX_DS, BWD_MAX_GROUP = 64, 128, 8  # K6b's limits
+
+
+def bwd_group(b: int, H: int, S: int, chunk: int, sms: int) -> int:
+    """Heads per block of K6b's group passes (scores, dC, dB): as many as
+    keep two blocks per SM, at most 8 (``ssd_scan.cu``'s rule)."""
+    nch = -(-S // min(chunk, S))
+    return max(1, min(BWD_MAX_GROUP, b * nch * H // (2 * sms)))
+
+
+def bwd_work_floats(b: int, H: int, S: int, hd: int, ds: int, chunk: int,
+                    group: int) -> int:
+    """Floats of K6b's workspace (mirrors ``ssd_scan_bwd_work_floats``):
+    per (batch, chunk, head) a state gradient, a total and the scores P and
+    R (Q x Q); per (batch, head) row cum, G's row and column sums and dt's
+    direct part (those three float64); per head group dB and dC partials;
+    per (batch, chunk, head) a dA partial."""
+    Q = min(chunk, S)
+    nch = -(-S // Q)
+    bh = b * H
+    ngroups = -(-H // group)
+    return (6 * bh * S + bh * nch * hd * ds + 2 * bh * nch + bh * S
+            + 2 * bh * nch * Q * Q + 2 * ngroups * b * S * ds)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ssd_scan_bwd_bhsd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
+                      work=None, dx=None, tally=None):
+    """K6b: (dx, ddt, dA, dB, dC) of ``ssd_scan_bhsd(x, dt, A, B, C)`` for
+    the cotangents ``dy`` (b, H, S, hd) of y and ``dstate`` (b, H, hd, ds)
+    of the final state (None: zero); see the module docstring. ``work`` is
+    the workspace the forward filled (``ssd_scan_bhsd(..., work=)``),
+    required on CUDA tensors when S spans more than one chunk. dx is the
+    given ``dx`` (a strided view is fine) or a new tensor; ddt (b, H, S)
+    and dA (H,) are float32, dB and dC (b, S, ds) in B's dtype, contiguous.
+
+    CPU tensors take the plain version (``work`` unused there); CUDA
+    tensors launch ``ssd_scan_bwd_{f32,bf16}`` (seven kernels: one call,
+    one count) or raise. The launch is counted in ``tally`` when given
+    (``SSDScanFn`` passes the ``recording`` tally open where its forward
+    ran), else in the calling thread's."""
+    if x.device.type == "cpu":
+        res = ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=chunk)
+        return (res[0] if dx is None else dx.copy_(res[0]),) + res[1:]
+    _build.refuse_grad("ssd_scan_bwd", x, dt, A, B, C, dy, dstate)
+    b, H, S, hd = x.shape
+    ds = B.shape[-1]
+    Q = min(chunk, S)
+    if dx is None:
+        dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _check(x, dt, A, B, C, dx, Q)
+    for name, t in (("dy", dy),):
+        if t.dtype != x.dtype or t.shape != x.shape or t.device != x.device \
+                or t.stride(-1) != 1:
+            raise ValueError(f"ssd_scan_bwd: {name} must match x in dtype, "
+                             f"shape and device with a contiguous last "
+                             f"dimension, got {t.dtype} {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    if dstate is not None and (dstate.dtype != torch.float32
+                               or dstate.shape != (b, H, hd, ds)
+                               or dstate.device != x.device
+                               or not dstate.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dstate must be a contiguous float32 "
+                         f"({b}, {H}, {hd}, {ds}) tensor, got {dstate.dtype} "
+                         f"{tuple(dstate.shape)}")
+    if hd > BWD_MAX_HD or ds > BWD_MAX_DS:
+        raise ValueError(f"ssd_scan_bwd: the kernel takes head_dim <= "
+                         f"{BWD_MAX_HD} and state <= {BWD_MAX_DS}, got "
+                         f"{hd} and {ds}")
+    nch = -(-S // Q)
+    if nch > 1:
+        nw = work_floats(b, H, S, hd, ds, chunk)
+        if work is None or work.dtype != torch.float32 \
+                or work.numel() != nw or work.device != x.device:
+            raise ValueError("ssd_scan_bwd: CUDA tensors over more than one "
+                             "chunk need the forward's workspace "
+                             "(ssd_scan_bhsd(..., work=))")
+    group = bwd_group(b, H, S, chunk, _sm_count(x.device))
+    bwork = torch.empty(bwd_work_floats(b, H, S, hd, ds, chunk, group),
+                        dtype=torch.float32, device=x.device)
+    ddt = torch.empty((b, H, S), dtype=torch.float32, device=x.device)
+    dA = torch.empty(H, dtype=torch.float32, device=x.device)
+    dB = torch.empty((b, S, ds), dtype=B.dtype, device=x.device)
+    dC = torch.empty((b, S, ds), dtype=C.dtype, device=x.device)
+    vals = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+            *dy.stride()[:3], *dx.stride()[:3]]
+    P, I32 = _build.P, _build.I32
+    fn = _build.function("ssd_scan_bwd", f"ssd_scan_bwd_{_SUFFIX[x.dtype]}",
+                         [P] * 14 + [I32] * 7 + [P, P])
+    rc = fn(_build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
+            _build.ptr(C), _build.ptr(dy), _build.ptr(dstate),
+            _build.ptr(work if nch > 1 else None), _build.ptr(dx),
+            _build.ptr(ddt), _build.ptr(dA), _build.ptr(dB), _build.ptr(dC),
+            _build.ptr(bwork), b, H, S, hd, ds, Q, group,
+            (ctypes.c_longlong * len(vals))(*vals), _build.stream_of(x))
+    _build.check(rc, "ssd_scan_bwd")
+    _build.counted(ssd_scan_bwd_bhsd, tally)
+    return dx, ddt, dA, dB, dC
+
+
+ssd_scan_bwd_bhsd.launches = 0
+
+
+def ssd_chunk_grads(xc, dtc, A, bc, cc, dyc, h_prev, dh_next):
+    """One chunk's gradients by the module docstring's formulas, in float32
+    on any device, per (batch, head): xc, dyc (b, H, Q, hd); dtc (b, H, Q);
+    A (H,); bc, cc (b, Q, ds); h_prev, dh_next (b, H, hd, ds). Returns a
+    dict: ``dx`` (b, H, Q, hd); ``ddt`` (b, H, Q), dt's direct part;
+    ``dB``, ``dC`` (b, H, Q, ds) per head, not yet summed over heads;
+    ``dcum`` (b, H, Q), the gradient of the chunk's cum (before the reverse
+    sum); ``dh_prev`` (b, H, hd, ds), the state gradient into the earlier
+    chunk. ``ddt`` and ``dcum`` are float64: their sums over the scores
+    are taken in float64 (the terms that the reverse sum of ``dcum``
+    cancels then cancel exactly), the rest in float32."""
+    Q = xc.shape[2]
+    cum = torch.cumsum((dtc * A.float()[None, :, None]).double(),
+                       dim=-1).float()
+    total = cum[..., -1:]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    L = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                              NEG_INF))                    # (b, H, Q, Q)
+    W = L * dtc[..., None, :]
+    CB = (cc @ bc.transpose(1, 2))[:, None]                # C_q . B_s
+    DX = dyc @ xc.transpose(2, 3)                          # dy_q . x_s
+    P, R = CB * W, DX * W
+    G = P * DX
+    e_cum = torch.exp(cum)
+    e_s = torch.exp(total - cum)
+    ew = e_s * dtc
+    V = bc[:, None] @ dh_next.transpose(2, 3)              # dh_next B_s
+    HC = dyc @ h_prev                                      # h_prev^T dy_q
+    U = e_s * (xc * V).sum(-1)
+    T = dtc * U
+    Gd = G.double()
+    dcum = Gd.sum(-1) - Gd.sum(-2) \
+        + (e_cum * (cc[:, None] * HC).sum(-1)).double() - T.double()
+    dcum[..., -1] += (torch.exp(total[..., 0])
+                      * (dh_next * h_prev).sum((-2, -1))).double() \
+        + T.double().sum(-1)
+    return {
+        "dx": P.transpose(2, 3) @ dyc + ew[..., None] * V,
+        "ddt": (CB * DX * L).double().sum(-2) + U.double(),
+        "dB": R.transpose(2, 3) @ cc[:, None] + ew[..., None]
+        * (xc @ dh_next),
+        "dC": R @ bc[:, None] + e_cum[..., None] * HC,
+        "dcum": dcum,
+        "dh_prev": torch.exp(total)[..., None] * dh_next
+        + (e_cum[..., None] * dyc).transpose(2, 3) @ cc[:, None],
+    }
+
+
+def chunk_states(x, dt, A, B, *, chunk: int = 128):
+    """The state entering each chunk of the SSD scan, float32 (b, nch, H,
+    hd, ds), by the plain version's state update (chunk 0's is zero): what
+    the kernel leaves in its workspace (``ssd_scan_bhsd(..., work=)``)."""
+    Q = min(chunk, x.shape[2])
+    states, _ = _states(_padded_chunks(x, Q, 2), _padded_chunks(dt, Q, 2), A,
+                        _padded_chunks(B, Q, 1), Q)
+    return torch.stack(states, dim=1)
+
+
+def reverse_cumsum(dcum):
+    """``da_r = sum_{k >= r} dcum_k`` along the last axis, in float64."""
+    return torch.cumsum(dcum.double().flip(-1), dim=-1).flip(-1)
+
+
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate=None, *,
+                       chunk: int = 128):
+    """The gradient of ``ssd_scan_plain`` by explicit formulas
+    (``ssd_chunk_grads``), one chunk at a time from the last, in float32
+    from widened inputs on any device. ``dy`` (b, H, S, hd) is y's
+    cotangent, ``dstate`` (b, H, hd, ds) the final state's (zero when None).
+    Returns (dx in x's dtype, ddt (b, H, S) float32, dA (H,) float32, dB and
+    dC (b, S, ds) in B's and C's dtypes)."""
+    b, H, S, hd = x.shape
+    ds = B.shape[-1]
+    Q = min(chunk, S)
+    xf, dyf = _padded_chunks(x, Q, 2), _padded_chunks(dy, Q, 2)
+    dtf = _padded_chunks(dt, Q, 2)
+    Bf, Cf = _padded_chunks(B, Q, 1), _padded_chunks(C, Q, 1)
+    states = chunk_states(x, dt, A, B, chunk=chunk)
+    dh = torch.zeros((b, H, hd, ds), dtype=torch.float32, device=x.device) \
+        if dstate is None else dstate.float()
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (xf, dtf, Bf, Cf))
+    dA = torch.zeros(H, dtype=torch.float64, device=x.device)
+    for c in range(states.shape[1] - 1, -1, -1):
+        sl = slice(c * Q, (c + 1) * Q)
+        g = ssd_chunk_grads(xf[:, :, sl], dtf[:, :, sl], A, Bf[:, sl],
+                            Cf[:, sl], dyf[:, :, sl], states[:, c], dh)
+        da = reverse_cumsum(g["dcum"])
+        dx[:, :, sl] = g["dx"]
+        ddt[:, :, sl] = g["ddt"] + A.double()[None, :, None] * da
+        dA += (dtf[:, :, sl].double() * da).sum((0, 2))
+        dB[:, sl] = g["dB"].sum(1)
+        dC[:, sl] = g["dC"].sum(1)
+        dh = g["dh_prev"]
+    return (dx[:, :, :S].to(x.dtype), ddt[:, :, :S], dA.float(),
+            dB[:, :S].to(B.dtype), dC[:, :S].to(C.dtype))

@@ -28,9 +28,10 @@ step from a CUDA graph over static buffers.
 
 ``loss`` is the chunked cross-entropy, as in ``lm.py``; ``cfg.remat``
 checkpoints each training layer (the reference checkpoints each (rec, rec,
-attn) group's body and runs the tail unchecked: the same values). On the
-card a training step raises at K3, which has no backward kernel yet; on the
-CPU the plain scan is differentiated.
+attn) group's body and runs the tail unchecked: the same values). A
+training step runs the recurrence through ``LinearScanFn`` (K3 forward, K3b
+backward) and the local attention through ``FlashAttentionFn`` (K4, K4b);
+on the CPU their plain versions.
 """
 
 from __future__ import annotations

@@ -11,8 +11,10 @@ As in ``lm.py``, ``decode_step`` updates the cache in place (the SSD state
 and the conv window of each layer, and ``cache["pos"]``): on the card a
 serving executor replays the step from a CUDA graph over static buffers.
 ``prefill`` ignores ``cache_len``, as the reference does. ``loss`` is
-``LM.loss``, inherited as in the reference; on the card a training step
-raises at K6, which has no backward kernel yet.
+``LM.loss``, inherited as in the reference; a training step runs each
+layer's SSD through ``kernels/ssd_scan/ops.py::SSDScanFn``: K6 forward (and
+again in the remat recompute), K6b backward (their plain versions on the
+CPU).
 """
 
 from __future__ import annotations

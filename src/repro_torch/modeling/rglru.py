@@ -12,9 +12,10 @@ The full Griffin recurrent block is: Wx -> causal conv1d (width 4) ->
 RG-LRU, gated by a parallel GeLU branch, then an output projection.
 
 Prefill and training run the recurrence through the linear-scan kernel
-(K3, ``kernels/linear_scan``; its ``"chunked"`` float32 regime), which
-launches its CUDA kernel for CUDA tensors and runs its plain version for CPU
-tensors, whatever ``impl`` says (the reference picks its associative scan,
+(K3, ``kernels/linear_scan``; its ``"chunked"`` float32 regime, and under
+autograd its Function, whose backward is K3b), which launches its CUDA
+kernels for CUDA tensors and runs its plain versions for CPU tensors,
+whatever ``impl`` says (the reference picks its associative scan,
 ``rglru_scan`` here too, or its Pallas kernel by ``impl``). Decoding is the
 single fused state update ``h = a * state + inp``, plain torch as in the
 reference (which has no kernel there either); it updates the ``state`` and

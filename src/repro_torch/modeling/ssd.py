@@ -6,9 +6,10 @@ per head:
     h_t = exp(dt_t A) h_{t-1} + dt_t x_t (x) B_t       (state: (heads, hd, ds))
     y_t = C_t . h_t + D x_t
 
-The prefill SSD of ``ssd_block_apply`` goes through the SSD scan kernel
-(K6, ``kernels/ssd_scan``), which launches its CUDA kernel for CUDA tensors
-and runs its plain version for CPU tensors; ``impl`` is accepted for the
+The prefill and training SSD of ``ssd_block_apply`` goes through the SSD
+scan kernel (K6, ``kernels/ssd_scan``; under autograd its Function, whose
+backward is K6b), which launches its CUDA kernels for CUDA tensors and runs
+its plain versions for CPU tensors; ``impl`` is accepted for the
 reference's signature and not routed on. The kernel computes in float32 and
 rounds only y (the reference's XLA path, ``ssd_chunked`` here too, rounds the
 intra-chunk scores to the input dtype before the product with x, so in bf16

@@ -6,7 +6,8 @@
   ``microbatch`` > 1 accumulates the microbatches' gradients in float32 and
   averages them, and the losses and metrics, as the reference's scan does.
   On the card every attention forward of the step is K4 and every
-  attention backward K4b (``FlashAttentionFn``).
+  attention backward K4b (``FlashAttentionFn``), every RG-LRU scan K3 and
+  K3b (``LinearScanFn``), every SSD K6 and K6b (``SSDScanFn``).
 - **checkpoint/restart**: atomic keep-k checkpoints every N steps; on start
   the loop auto-resumes from LATEST (the data pipeline is counter-seeded
   and the optimizer state is saved).

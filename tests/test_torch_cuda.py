@@ -13,7 +13,10 @@ in float32 too, the GBRT kernels (the same per-tree roundings;
 linear scan's chunked float32 regime and float32 attention within 5e-5,
 bf16 attention within 3e-2 (the reference's own kernel tolerances); the
 SSD scan's y within 1e-4 in float32 and within 3e-2 of max(1, |y|) in
-bf16, its float32 state within 1e-4. The kernels' CPU-side parity with
+bf16, its float32 state within 1e-4; the backward kernels K3b and K6b
+within 5e-5 and 1e-4 of max(1, |grad|) in float32, K6b's bf16 rows
+within 2^-6 of their largest |grad| (``chip_smoke.py``'s limits), each
+bit-equal run to run. The kernels' CPU-side parity with
 the JAX package is in ``tests/test_torch_modeling.py`` and
 ``tests/test_torch_ssm.py``; here a small dense LM, a small Mamba-2 LM
 and live executors run on the card, the decode step from its CUDA graph.
@@ -1873,10 +1876,12 @@ def test_flash_attention_bwd_strided_and_deterministic_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_under_autograd_on_card(cuda_device):
-    """No gradient is dropped silently: ``loss.backward()`` through K4 gives
-    the plain version's gradients (its Function's backward is K4b), and K3,
-    K5 and K6, which have no backward kernel yet, raise before launching.
-    Under ``no_grad`` they launch as before."""
+    """No gradient is dropped silently: ``loss.backward()`` through K4, K3's
+    chunked regime and K6 gives the plain versions' gradients (their
+    Functions' backwards are K4b, K3b and K6b, one launch each), and K5 and
+    K3's fold regime (float64, and ``a=None``), which have no backward
+    kernel, raise before launching. Under ``no_grad`` they launch as
+    before."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_bhd,
     )
@@ -1885,7 +1890,10 @@ def test_kernels_without_a_backward_raise_under_autograd_on_card(cuda_device):
         flash_attention_plain,
     )
     from repro_torch.kernels.linear_scan.kernel import linear_scan_bsd
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhsd
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_plain,
+    )
 
     dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1894,29 +1902,44 @@ def test_kernels_without_a_backward_raise_under_autograd_on_card(cuda_device):
         return torch.randn(shape, generator=g, device=dev).requires_grad_(True)
 
     q, k, v = leaf(1, 4, 40, 16), leaf(1, 2, 40, 16), leaf(1, 2, 40, 16)
-    before = kernels.launch_counts()
-    flash_attention_bhsd(q, k, v, causal=True).square().sum().backward()
-    got = [t.grad.clone() for t in (q, k, v)]
-    counts = kernels.launch_counts()
-    assert counts["flash_attention"] == before["flash_attention"] + 1
-    assert counts["flash_attention_bwd"] == \
-        before["flash_attention_bwd"] + 1
-    for t in (q, k, v):
-        t.grad = None
-    flash_attention_plain(q, k, v, causal=True).square().sum().backward()
-    for a, t in zip(got, (q, k, v)):
-        torch.testing.assert_close(a, t.grad, rtol=1e-4, atol=1e-5)
-
     x, a = leaf(1, 8, 4), torch.rand((1, 8, 4), device=dev)
-    lengths = torch.full((1,), 5, dtype=torch.int32, device=dev)
-    dq = leaf(1, 4, 1, 16)
     sx, sdt = leaf(1, 2, 8, 4), torch.rand((1, 2, 8), device=dev)
     sA, sB = -torch.ones(2, device=dev), torch.randn((1, 8, 3), device=dev)
-    calls = {"linear_scan": lambda: linear_scan_bsd(x, a),
-             "decode_attention": lambda: decode_attention_bhd(
-                 dq, k.detach(), v.detach(), lengths),
-             "ssd_scan": lambda: ssd_scan_bhsd(sx, sdt, sA, sB, sB)}
-    for name, call in calls.items():
+    # each call with a backward kernel: (its output under autograd, its
+    # plain version's, the leaves, the forward and backward kernels)
+    with_bwd = {
+        "flash_attention": (
+            lambda: flash_attention_bhsd(q, k, v, causal=True),
+            lambda: flash_attention_plain(q, k, v, causal=True), (q, k, v),
+            "flash_attention_bwd"),
+        "linear_scan": (lambda: linear_scan_bsd(x, a)[0],
+                        lambda: linear_scan_plain(x, a)[0], (x,),
+                        "linear_scan_bwd"),
+        "ssd_scan": (lambda: ssd_scan_bhsd(sx, sdt, sA, sB, sB)[0],
+                     lambda: ssd_scan_plain(sx, sdt, sA, sB, sB)[0], (sx,),
+                     "ssd_scan_bwd")}
+    for name, (call, plain, leaves, bwd) in with_bwd.items():
+        before = kernels.launch_counts()
+        call().square().sum().backward()
+        got = [t.grad.clone() for t in leaves]
+        counts = kernels.launch_counts()
+        assert counts[name] == before[name] + 1, name
+        assert counts[bwd] == before[bwd] + 1, name
+        for t in leaves:
+            t.grad = None
+        plain().square().sum().backward()
+        for t_got, t in zip(got, leaves):
+            torch.testing.assert_close(t_got, t.grad, rtol=1e-4, atol=1e-5)
+            t.grad = None
+
+    lengths = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    dq = leaf(1, 4, 1, 16)
+    x64 = leaf(1, 8, 4).double()
+    calls = [("decode_attention", lambda: decode_attention_bhd(
+                  dq, k.detach(), v.detach(), lengths)),
+             ("linear_scan", lambda: linear_scan_bsd(x64, a.double())),
+             ("linear_scan", lambda: linear_scan_bsd(x))]  # a == 1
+    for name, call in calls:
         n = kernels.launch_counts()[name]
         with pytest.raises(NotImplementedError, match=name):
             call()
@@ -2058,3 +2081,203 @@ def test_float32_train_step_card_matches_cpu(cuda_device):
         # differs on a gradient at float32 noise moves it by 2 lr
         assert float((card[k].detach().cpu() - cpu[k].detach()).abs()
                      .max()) <= 2.1e-3, k
+
+
+# ---------------------------------------------------------------- K3b, K6b
+def _k3b_inputs(rng, B, S, D, dev):
+    x, a, dh = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (
+        rng.normal(size=(B, S, D)), rng.uniform(0.1, 1.0, size=(B, S, D)),
+        rng.normal(size=(B, S, D))))
+    dfinal = torch.as_tensor(rng.normal(size=(B, D)), dtype=torch.float32,
+                             device=dev)
+    h, _ = linear_scan_bsd(x, a)
+    return dh, dfinal, a, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D", [(2, 300, 40), (1, 4096, 1024),
+                                   (3, 77, 5), (1, 1, 3), (2, 257, 130)])
+@pytest.mark.parametrize("with_dfinal", [True, False],
+                         ids=["dfinal", "no_dfinal"])
+def test_linear_scan_bwd_on_card(cuda_device, rng, B, S, D, with_dfinal):
+    """K3b against its plain version: several chunks with a ragged tail,
+    one chunk, one row, D not a multiple of the block; within 5e-5 of
+    max(1, |grad|), and two runs bit-equal."""
+    from repro_torch.kernels.linear_scan.kernel import (
+        linear_scan_bwd_bsd,
+        linear_scan_bwd_plain,
+    )
+
+    dh, dfinal, a, h = _k3b_inputs(rng, B, S, D, cuda_device)
+    dfinal = dfinal if with_dfinal else None
+    got = linear_scan_bwd_bsd(dh, dfinal, a, h)
+    again = linear_scan_bwd_bsd(dh, dfinal, a, h)
+    want = linear_scan_bwd_plain(dh, dfinal, a, h)
+    for g, r, w in zip(got, again, want):
+        assert torch.equal(g, r)
+        assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= \
+            SCAN_TOL
+
+
+def _k6b_case(rng, b, H, S, hd, ds, chunk, dtype, dev, dstate=True):
+    """K6b's inputs in the model's layout (strided views), the forward run
+    with its workspace kept, and the kernel's and the plain version's
+    gradients."""
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_bwd_bhsd,
+        ssd_scan_bwd_plain,
+        work_floats,
+    )
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).to(dt)
+
+    x = t(rng.normal(size=(b, S, H, hd))).transpose(1, 2)
+    dtt = t(rng.uniform(0.01, 0.6, size=(b, S, H)), torch.float32)\
+        .transpose(1, 2)
+    A = -t(rng.uniform(0.5, 3.0, size=(H,)), torch.float32)
+    proj = t(rng.normal(size=(b, S, 2 * ds + 3)))
+    B, C = proj[..., :ds], proj[..., ds + 1:2 * ds + 1]
+    dy = t(rng.normal(size=(b, S, H, hd))).transpose(1, 2)
+    dst = t(rng.normal(size=(b, H, hd, ds)), torch.float32) if dstate \
+        else None
+    nw = work_floats(b, H, S, hd, ds, chunk)
+    work = torch.empty(nw, dtype=torch.float32, device=dev) if nw else None
+    ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk, work=work)
+    runs = [ssd_scan_bwd_bhsd(x, dtt, A, B, C, dy, dst, chunk=chunk,
+                              work=work) for _ in range(2)]
+    want = ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dst, chunk=chunk)
+    return runs, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,H,S,hd,ds,chunk", [
+    (1, 3, 45, 8, 16, 16), (2, 5, 300, 64, 128, 128), (1, 2, 32, 64, 128, 128),
+    (1, 4, 100, 64, 128, 128), (1, 9, 70, 20, 36, 32), (2, 48, 2048, 64, 128,
+                                                         128)])
+def test_ssd_scan_bwd_on_card(cuda_device, rng, dtype, b, H, S, hd, ds,
+                              chunk):
+    """K6b against its plain version: ragged chunks, mamba2-780m's widths
+    over 3 chunks, the serving route's single chunk of 32, one chunked-route
+    chunk of 100, odd widths, and mamba2-780m's training shape. Float32
+    within 1e-4 of max(1, |grad|); bf16 each row within 2^-6 of its
+    largest |grad| (``chip_smoke.py``'s limits); two runs bit-equal."""
+    runs, want = _k6b_case(rng, b, H, S, hd, ds, chunk, dtype, cuda_device)
+    got = runs[0]
+    for g, r in zip(*runs):
+        assert g.dtype == r.dtype and torch.equal(
+            g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+            r.view(torch.int16) if r.dtype == torch.bfloat16 else r)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    if dtype == torch.float32:
+        assert SMOKE.k4b_f32_err(got, want) <= SMOKE.K6B_TOL
+    else:
+        rows = lambda r: (r[0], r[1], r[2][None], r[3], r[4])  # noqa: E731
+        assert SMOKE.k4b_row_err(rows(got), rows(want)) <= SMOKE.K4B_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_needs_the_forward_workspace_on_card(cuda_device):
+    """On CUDA tensors over more than one chunk K6b reads the states K6
+    left in its workspace, and raises without it."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_bhsd
+
+    x = torch.ones((1, 2, 40, 8), device=cuda_device)
+    dt = torch.ones((1, 2, 40), device=cuda_device)
+    A = -torch.ones(2, device=cuda_device)
+    B = torch.ones((1, 40, 16), device=cuda_device)
+    before = ssd_scan_bwd_bhsd.launches
+    with pytest.raises(ValueError, match="workspace"):
+        ssd_scan_bwd_bhsd(x, dt, A, B, B, x, chunk=16)
+    assert ssd_scan_bwd_bhsd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,H,S,hd,ds,chunk", [(2, 48, 2048, 64, 128, 128),
+                                               (1, 3, 45, 8, 16, 16)])
+def test_ssd_scan_bwd_workspace_mirrors_the_library_on_card(
+        cuda_device, b, H, S, hd, ds, chunk):
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan.kernel import (
+        _sm_count,
+        bwd_group,
+        bwd_work_floats,
+    )
+
+    fn = _build.library("ssd_scan_bwd").ssd_scan_bwd_work_floats
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    g = bwd_group(b, H, S, chunk, _sm_count(cuda_device))
+    assert fn(b, H, S, hd, ds, min(chunk, S), g) == \
+        bwd_work_floats(b, H, S, hd, ds, chunk, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_scan_train_step_recording_counts_backward_kernels_on_card(
+        cuda_device, arch, remat):
+    """One smoke Mamba or Griffin training step (bf16) with its loss and
+    ``torch.autograd.grad`` inside a ``recording()`` block counts K6b / K3b
+    (and Griffin's K4b) once per layer, though autograd launches them on its
+    own device thread, and each forward kernel once per layer more under
+    remat "full" (the recompute); the block agrees with the wrappers'
+    global counts, and the gradients are finite."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = smoke_config(arch).with_updates(remat=remat, dtype="bfloat16")
+    model = build_model(cfg)
+    params = {k: t.to(cuda_device).requires_grad_(True) for k, t in
+              model.init(torch.Generator().manual_seed(0)).items()}
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             make_pipeline(cfg, seq_len=40, global_batch=2, seed=0)
+             .batch(0).items()}
+    before = kernels.launch_counts()
+    with kernels.recording() as tally:
+        (loss, _), grads = _value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+    want = SMOKE.train_launches(cfg)
+    if remat == "none":
+        want = {k: (n // 2 if not k.endswith("_bwd") else n)
+                for k, n in want.items()}
+    assert tally == want
+    assert tally == {name: c - before[name] for name, c in
+                     kernels.launch_counts().items() if c != before[name]}
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_scan_float32_train_step_card_matches_cpu(cuda_device, arch):
+    """One float32 step of the smoke Mamba or Griffin (remat "full") on the
+    card and on the CPU from the same parameters and batch: the loss and
+    every gradient within 1e-4 of its scale."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = smoke_config(arch).with_updates(remat="full")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = {k: t.to(cuda_device).requires_grad_(True) for k, t in cpu.items()}
+    for t in cpu.values():
+        t.requires_grad_(True)
+    batch = make_pipeline(cfg, seq_len=40, global_batch=2, seed=0).batch(0)
+    (loss_d, _), g_d = _value_and_grad(model, card, {
+        k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()})
+    (loss_c, _), g_c = _value_and_grad(
+        model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    for k in g_c:
+        err = float((g_d[k].cpu() - g_c[k]).abs().max())
+        assert err <= 1e-4 * float(g_c[k].abs().max().clamp_min(1e-30)), k

@@ -248,7 +248,9 @@ def test_cpu_tensors_launch_no_kernel(rng):
         gbrt_predict,
         gbrt_predict_configs,
     )
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_bwd_bsd
     from repro_torch.kernels.linear_scan.ops import linear_scan, prefix_sum
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_bhsd
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.kernels.state_replay.kernel import (
         state_replay,
@@ -280,11 +282,18 @@ def test_cpu_tensors_launch_no_kernel(rng):
                          torch.tensor([3], dtype=torch.int32))
     ssd(torch.ones((1, 6, 2, 4)), torch.ones((1, 6, 2)), -torch.ones(2),
         torch.ones((1, 6, 3)), torch.ones((1, 6, 3)), chunk=4)
+    s = torch.ones((1, 4, 2))
+    linear_scan_bwd_bsd(s, s[:, 0], s, s)
+    xs = torch.ones((1, 2, 6, 4))
+    ssd_scan_bwd_bhsd(xs, torch.ones((1, 2, 6)), -torch.ones(2),
+                      torch.ones((1, 6, 3)), torch.ones((1, 6, 3)), xs,
+                      chunk=4)
     counts = kernels.launch_counts()
     assert set(counts) == {"gbrt_predict_multi", "gbrt_predict_blocked",
-                           "linear_scan", "state_replay", "state_walk",
-                           "flash_attention", "flash_attention_bwd",
-                           "decode_attention", "ssd_scan"}
+                           "linear_scan", "linear_scan_bwd", "state_replay",
+                           "state_walk", "flash_attention",
+                           "flash_attention_bwd", "decode_attention",
+                           "ssd_scan", "ssd_scan_bwd"}
     assert set(counts.values()) == {0}
     assert np.isfinite(gbrt_predict(m, torch.as_tensor(x)).numpy()).all()
 
