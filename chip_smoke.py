@@ -2601,8 +2601,7 @@ def train_step_check(dev, arch, layers, B, S, adamw=False) -> dict:
 # the first match wins
 KERNEL_KINDS = (
     ("k4b", ("fa_bwd",)), ("k4", ("fa_tc_kernel", "fa_f32_kernel")),
-    ("k6b", ("bwd_states_kernel", "bwd_carry_kernel", "bwd_scores_kernel",
-             "bwd_dx_kernel", "bwd_dbc_kernel", "bwd_reduce_kernel")),
+    ("k6b", ("ssd_bwd_",)),
     ("k6", ("ssd_chunk_kernel", "ssd_tc_kernel", "ssd_carry_kernel")),
     ("k3b", ("chunk_bwd_",)), ("k3", ("chunk_summary_kernel",
                                      "chunk_apply_kernel")),
@@ -3129,7 +3128,8 @@ def phase_train(dev, card) -> dict:
               "in float32",
         rate="bf16: every product at the bf16 tensor-core rate, those with "
              "a float32 operand counted three times; f32: all at the "
-             "float32 rate (the kernel runs on the CUDA cores in both)"))
+             "float32 rate (bf16 runs on the tensor cores, float32 on the "
+             "CUDA cores)"))
     launches = {}
     for s_ in slices:
         for name, n in s_["launches"].items():

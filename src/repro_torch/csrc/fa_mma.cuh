@@ -1,11 +1,12 @@
 // Tensor-core building blocks shared by the flash-attention forward (K4,
-// flash_attention.cu) and its backward (K4b, flash_attention_bwd.cu):
+// flash_attention.cu), its backward (K4b, flash_attention_bwd.cu) and the
+// SSD backward (K6b, ssd_scan_bwd.cu):
 // bf16 tiles staged with cp.async into shared memory whose 16-byte chunks
 // are XOR-swizzled by row, fragments read with ldmatrix, and
 // mma.sync.m16n8k16 (bf16 in, float32 accumulate).
 //
-// Included by both sources; _build hashes this header into each library's
-// name, so an edit here rebuilds both.
+// _build hashes this header into the name of each library that includes
+// it, so an edit here rebuilds those.
 
 #pragma once
 

@@ -9,8 +9,9 @@ Every source but the attention kernels (``flash_attention``, its backward
 float64) rest on no multiply and add being contracted into an FMA; the
 attention kernels' softmax and dot products want their FMAs and are held to
 a tolerance (``flags``). The hash covers the source, the headers of
-``csrc`` it includes (``#include "<name>.cuh"``: the attention kernels'
-``fa_mma.cuh``) and its flags, so an edited source, header or flag rebuilds
+``csrc`` it includes (``#include "<name>.cuh"``: ``fa_mma.cuh``, which the
+attention kernels and the SSD backward include) and its flags, so an
+edited source, header or flag rebuilds
 and an unchanged one loads at once.
 ``build_all`` starts one ``nvcc`` per source, all together, and waits for
 them; ``library`` builds a single missing one on demand. Nothing here runs

@@ -59,7 +59,13 @@ feed ``dcum`` and dt's direct part, ``dcum``'s reverse sum and dA run in
 float64 (as cum is summed): the reverse sum cancels the terms that both a
 row's and a column's sum hold, exactly in float64, where float32 would
 leave their roundings behind (up to 1e-4 of a gradient at mamba2-780m's
-widths); the rest runs in float32 from widened inputs.
+widths); the rest runs in float32 from widened inputs. The kernel's bf16
+route runs every product on the tensor cores, each float32 operand (the
+decayed scores P and R, the states, ``exp(cum) dy``) split into three bf16
+terms against the exact bf16 other operand, so its float32 gradients
+(ddt, dA) agree with the plain version's to a few 1e-6 of their scale, and
+keeps P and R in registers; its float32 route keeps them in its workspace
+(``bwd_work_floats``).
 """
 
 from __future__ import annotations
@@ -249,26 +255,38 @@ ssd_scan_bhsd.launches = 0
 BWD_MAX_HD, BWD_MAX_DS, BWD_MAX_GROUP = 64, 128, 8  # K6b's limits
 
 
-def bwd_group(b: int, H: int, S: int, chunk: int, sms: int) -> int:
-    """Heads per block of K6b's group passes (scores, dC, dB): as many as
-    keep two blocks per SM, at most 8 (``ssd_scan.cu``'s rule)."""
+def bwd_group(b: int, H: int, S: int, chunk: int, sms: int,
+              dtype=torch.bfloat16) -> int:
+    """Heads per block of K6b's passes over head groups (every pass but the
+    carry and the reduce). float32 (scores, dC, dB): as many as keep two
+    blocks per SM, at most 8 (``ssd_scan.cu``'s rule). bf16, whose dx/dB
+    and dC passes hold an SM with one block: the group of at most 8 heads
+    whose blocks take the least time in whole waves, waves x (heads + 1)
+    (a block also stages its chunk's B and C rows, about one head's
+    loads), the largest on a tie (the fewest dB and dC partials)."""
     nch = -(-S // min(chunk, S))
-    return max(1, min(BWD_MAX_GROUP, b * nch * H // (2 * sms)))
+    if dtype == torch.float32:
+        return max(1, min(BWD_MAX_GROUP, b * nch * H // (2 * sms)))
+    cost = {g: -(-b * nch * -(-H // g) // sms) * (g + 1)
+            for g in range(1, min(BWD_MAX_GROUP, H) + 1)}
+    return min(cost, key=lambda g: (cost[g], -g))
 
 
 def bwd_work_floats(b: int, H: int, S: int, hd: int, ds: int, chunk: int,
-                    group: int) -> int:
+                    group: int, dtype=torch.bfloat16) -> int:
     """Floats of K6b's workspace (mirrors ``ssd_scan_bwd_work_floats``):
-    per (batch, chunk, head) a state gradient, a total and the scores P and
-    R (Q x Q); per (batch, head) row cum, G's row and column sums and dt's
-    direct part (those three float64); per head group dB and dC partials;
-    per (batch, chunk, head) a dA partial."""
+    per (batch, chunk, head) a state gradient and a total; per (batch, head)
+    row cum, U, G's row and column sums and dt's direct part (those three
+    float64); per head group dB and dC partials; per (batch, chunk, head) a
+    dA partial. The float32 route also keeps the decayed scores P and R (Q
+    x Q per head and chunk); the bf16 route keeps them in registers."""
     Q = min(chunk, S)
     nch = -(-S // Q)
     bh = b * H
     ngroups = -(-H // group)
-    return (6 * bh * S + bh * nch * hd * ds + 2 * bh * nch + bh * S
-            + 2 * bh * nch * Q * Q + 2 * ngroups * b * S * ds)
+    scores = 2 * bh * nch * Q * Q if dtype == torch.float32 else 0
+    return (6 * bh * S + bh * nch * hd * ds + 2 * bh * nch + 2 * bh * S
+            + scores + 2 * ngroups * b * S * ds)
 
 
 def _sm_count(device) -> int:
@@ -286,8 +304,9 @@ def ssd_scan_bwd_bhsd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
     and dA (H,) are float32, dB and dC (b, S, ds) in B's dtype, contiguous.
 
     CPU tensors take the plain version (``work`` unused there); CUDA
-    tensors launch ``ssd_scan_bwd_{f32,bf16}`` (seven kernels: one call,
-    one count) or raise. The launch is counted in ``tally`` when given
+    tensors launch ``ssd_scan_bwd_{f32,bf16}`` (five tensor-core passes in
+    bf16, seven CUDA-core passes in float32: one call, one count) or
+    raise. The launch is counted in ``tally`` when given
     (``SSDScanFn`` passes the ``recording`` tally open where its forward
     ran), else in the calling thread's."""
     if x.device.type == "cpu":
@@ -326,8 +345,9 @@ def ssd_scan_bwd_bhsd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
             raise ValueError("ssd_scan_bwd: CUDA tensors over more than one "
                              "chunk need the forward's workspace "
                              "(ssd_scan_bhsd(..., work=))")
-    group = bwd_group(b, H, S, chunk, _sm_count(x.device))
-    bwork = torch.empty(bwd_work_floats(b, H, S, hd, ds, chunk, group),
+    group = bwd_group(b, H, S, chunk, _sm_count(x.device), x.dtype)
+    bwork = torch.empty(bwd_work_floats(b, H, S, hd, ds, chunk, group,
+                                        x.dtype),
                         dtype=torch.float32, device=x.device)
     ddt = torch.empty((b, H, S), dtype=torch.float32, device=x.device)
     dA = torch.empty(H, dtype=torch.float32, device=x.device)

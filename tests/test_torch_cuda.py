@@ -2180,6 +2180,57 @@ def test_ssd_scan_bwd_on_card(cuda_device, rng, dtype, b, H, S, hd, ds,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernels_fall_under_their_kind_on_card(cuda_device, rng,
+                                                             dtype):
+    """Every kernel one K6b call launches, as ``torch.profiler`` names it,
+    falls under ``chip_smoke.py``'s ``k6b`` kind (``KERNEL_KINDS``, first
+    match wins), so that phase 7 files K6b's device time under K6b; the
+    bf16 call launches the five tensor-core passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_scan_bhsd,
+        ssd_scan_bwd_bhsd,
+        work_floats,
+    )
+
+    b, H, S, hd, ds, chunk = 1, 4, 300, 64, 128, 128
+    dev = cuda_device
+
+    def t(shape, dt=dtype):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                               device=dev).to(dt)
+
+    x, dy, B, C = t((b, H, S, hd)), t((b, H, S, hd)), t((b, S, ds)), \
+        t((b, S, ds))
+    dtt = torch.as_tensor(rng.uniform(0.01, 0.6, size=(b, H, S)),
+                          dtype=torch.float32, device=dev)
+    A = -torch.ones(H, device=dev)
+    work = torch.empty(work_floats(b, H, S, hd, ds, chunk),
+                       dtype=torch.float32, device=dev)
+    ssd_scan_bhsd(x, dtt, A, B, C, chunk=chunk, work=work)
+
+    def call():
+        return ssd_scan_bwd_bhsd(x, dtt, A, B, C, dy, chunk=chunk, work=work)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0.0) > 0}
+    kinds = {name: next((k for k, frags in SMOKE.KERNEL_KINDS
+                         if any(f.lower() in name.lower() for f in frags)),
+                        "other") for name in names}
+    # torch.empty and the wrapper's allocations launch no kernel
+    assert names and set(kinds.values()) == {"k6b"}, kinds
+    if dtype == torch.bfloat16:
+        assert len(names) == 5, sorted(names)
+
+
+@pytest.mark.cuda
 def test_ssd_scan_bwd_needs_the_forward_workspace_on_card(cuda_device):
     """On CUDA tensors over more than one chunk K6b reads the states K6
     left in its workspace, and raises without it."""
@@ -2210,11 +2261,12 @@ def test_ssd_scan_bwd_workspace_mirrors_the_library_on_card(
     )
 
     fn = _build.library("ssd_scan_bwd").ssd_scan_bwd_work_floats
-    fn.argtypes = [ctypes.c_int] * 7
+    fn.argtypes = [ctypes.c_int] * 8
     fn.restype = ctypes.c_longlong
-    g = bwd_group(b, H, S, chunk, _sm_count(cuda_device))
-    assert fn(b, H, S, hd, ds, min(chunk, S), g) == \
-        bwd_work_floats(b, H, S, hd, ds, chunk, g)
+    for f32, dtype in ((1, torch.float32), (0, torch.bfloat16)):
+        g = bwd_group(b, H, S, chunk, _sm_count(cuda_device), dtype)
+        assert fn(b, H, S, hd, ds, min(chunk, S), g, f32) == \
+            bwd_work_floats(b, H, S, hd, ds, chunk, g, dtype)
 
 
 @pytest.mark.cuda

@@ -410,14 +410,15 @@ def test_carry_recording_runs_a_function_in_the_callers_block():
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
-    """K4 and K4b include the shared ``fa_mma.cuh``: each library's name
-    hashes it with the source, so an edited header rebuilds both and no
-    other."""
+    """K4, K4b and K6b include the shared ``fa_mma.cuh``: each library's
+    name hashes it with the source, so an edited header rebuilds those three
+    and no other."""
     import shutil
 
     from repro_torch.kernels import _build
 
-    for name in ("flash_attention", "flash_attention_bwd"):
+    users = {"flash_attention", "flash_attention_bwd", "ssd_scan_bwd"}
+    for name in users:
         assert _build.CSRC / "fa_mma.cuh" in _build.sources(name)
     for path in _build.CSRC.iterdir():
         if path.is_file():
@@ -428,7 +429,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     changed = {name for name in _build.SOURCES
                if _build.lib_path(name) != before[name]}
-    assert changed == {"flash_attention", "flash_attention_bwd"}
+    assert changed == users
 
 
 def test_launch_counts_survive_concurrent_threads():

@@ -57,9 +57,11 @@ from repro_torch.kernels.linear_scan.kernel import (
 )
 from repro_torch.kernels.linear_scan.ops import LinearScanFn, linear_scan
 from repro_torch.kernels.ssd_scan.kernel import (
+    _padded_chunks,
     bwd_group,
     bwd_work_floats,
     chunk_states,
+    reverse_cumsum,
     ssd_scan_bwd_bhsd,
     ssd_scan_bwd_plain,
     ssd_scan_plain,
@@ -347,18 +349,26 @@ def test_ssd_fn_gives_no_gradient_for_unused_outputs(rng):
     assert all(torch.isfinite(t).all() for t in g)
 
 
-@pytest.mark.parametrize("b,H,S,chunk,sms", [(2, 48, 2048, 128, 132),
-                                             (1, 3, 45, 16, 132),
-                                             (8, 64, 4096, 128, 132)])
-def test_k6b_group_and_workspace(b, H, S, chunk, sms):
+@pytest.mark.parametrize("b,H,S,chunk,sms,groups", [
+    (2, 48, 2048, 128, 132, (6, 5)), (1, 3, 45, 16, 132, (1, 1)),
+    (8, 64, 4096, 128, 132, (8, 8))])
+def test_k6b_group_and_workspace(b, H, S, chunk, sms, groups):
+    """The head groups (bf16: the fewest waves x heads; float32: two blocks
+    an SM) and the workspace's length on both routes."""
+    assert (bwd_group(b, H, S, chunk, sms),
+            bwd_group(b, H, S, chunk, sms, torch.float32)) == groups
     g = bwd_group(b, H, S, chunk, sms)
     assert 1 <= g <= 8
     Q = min(chunk, S)
     nch = -(-S // Q)
-    n = bwd_work_floats(b, H, S, 64, 128, chunk, g)
-    # the three float64 row buffers, then the float32 parts
-    assert n == 6 * b * H * S + b * nch * H * 64 * 128 + 2 * b * H * nch \
-        + b * H * S + 2 * b * nch * H * Q * Q + 2 * -(-H // g) * b * S * 128
+    # the three float64 row buffers, then the float32 parts; the decayed
+    # scores P and R only on the float32 route
+    bf16 = 6 * b * H * S + b * nch * H * 64 * 128 + 2 * b * H * nch \
+        + 2 * b * H * S + 2 * -(-H // g) * b * S * 128
+    assert bwd_work_floats(b, H, S, 64, 128, chunk, g) == bf16
+    assert bwd_work_floats(b, H, S, 64, 128, chunk, g, torch.bfloat16) == bf16
+    assert bwd_work_floats(b, H, S, 64, 128, chunk, g, torch.float32) == \
+        bf16 + 2 * b * nch * H * Q * Q
     assert work_floats(b, H, S, 64, 128, chunk) in (
         0, b * nch * H * 64 * 128 + b * H * nch)
 
@@ -379,6 +389,112 @@ def test_k6b_planted_faults_break_the_bf16_row_limit(fault, rng):
     assert smoke.k4b_row_err(grads(clean), grads(want)) <= 2.0 ** -20
     planted = smoke.k6b_planted(*args, 16, fault)
     assert smoke.k4b_row_err(grads(planted), grads(want)) > smoke.K4B_ROW_TOL
+
+
+def _terms(t, n):
+    """float32 ``t`` as n bf16 terms, hi (+ mid (+ lo)): each term the bf16
+    rounding of what the earlier ones leave (``ssd_scan_bwd.cu``'s split)."""
+    out, r = [], t
+    for _ in range(n):
+        term = r.to(torch.bfloat16).float()
+        out.append(term)
+        r = r - term
+    return out
+
+
+def _k6b_bf16_route(x, dt, A, B, C, dy, dstate, chunk, terms=3,
+                    p_terms=None, out_dtype=None):
+    """K6b's bf16 route emulated in torch on the CPU: C B^T and dy x^T from
+    the exact bf16 operands; each product with a float32 operand (P, R,
+    h_prev, dh_next, exp(cum) dy) summed over that operand's ``terms`` bf16
+    terms (P's ``p_terms`` when given), each term times the exact bf16
+    operand in float32; the sums of G, dt's direct part, dcum and dA in
+    float64 as the kernel takes them. Kernel-layout inputs; returns (dx,
+    ddt, dA, dB, dC), dx, dB and dC in ``out_dtype`` (x's by default)."""
+    b, H, S, hd = x.shape
+    Q = min(chunk, S)
+    xf, dyf, dtf = (_padded_chunks(t, Q, 2) for t in (x, dy, dt))
+    Bf, Cf = _padded_chunks(B, Q, 1), _padded_chunks(C, Q, 1)
+    states = chunk_states(x, dt, A, B, chunk=chunk)
+
+    def mm(a, exact, n=terms):  # float32 a times exact bf16, split
+        return sum(t @ exact for t in _terms(a, n))
+
+    a_ = A.float()[None, :, None]
+    dh = dstate.float()
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (xf, dtf, Bf, Cf))
+    dA = torch.zeros(H, dtype=torch.float64)
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    for c in range(states.shape[1] - 1, -1, -1):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, dyc, dtc = xf[:, :, sl], dyf[:, :, sl], dtf[:, :, sl]
+        bc, cc, hp = Bf[:, None, sl], Cf[:, None, sl], states[:, c]
+        cum = torch.cumsum((dtc * a_).double(), dim=-1).float()
+        total = cum[..., -1:]
+        L = torch.exp(torch.where(causal, cum[..., :, None]
+                                  - cum[..., None, :], -2.0e38))
+        W = L * dtc[..., None, :]
+        CB, DX = cc @ bc.transpose(-1, -2), dyc @ xc.transpose(-1, -2)
+        P, R = CB * W, DX * W
+        G = (P * DX).double()
+        e_cum, e_s = torch.exp(cum), torch.exp(total - cum)
+        ew = e_s * dtc
+        V = mm(dh, bc.transpose(-1, -2)).transpose(-1, -2)  # dh_next B_s
+        HC = sum(dyc @ t for t in _terms(hp, terms))       # dy h_prev
+        U = e_s * (xc * V).sum(-1)
+        T = (dtc * U).double()
+        dcum = G.sum(-1) - G.sum(-2) \
+            + (e_cum * (cc * HC).sum(-1)).double() - T
+        dcum[..., -1] += (torch.exp(total[..., 0])
+                          * (dh * hp).sum((-2, -1))).double() + T.sum(-1)
+        da = reverse_cumsum(dcum)
+        dx[:, :, sl] = mm(P.transpose(-1, -2), dyc, p_terms or terms) \
+            + ew[..., None] * V
+        ddt[:, :, sl] = ((CB * DX * L).double().sum(-2) + U.double()
+                         + A.double()[None, :, None] * da).float()
+        dA += (dtc.double() * da).sum((0, 2))
+        XD = sum(xc @ t for t in _terms(dh, terms))
+        dB[:, sl] = (mm(R.transpose(-1, -2), cc) + ew[..., None] * XD).sum(1)
+        dC[:, sl] = (mm(R, bc) + e_cum[..., None] * HC).sum(1)
+        dh = torch.exp(total)[..., None] * dh \
+            + mm((e_cum[..., None] * dyc).transpose(-1, -2), cc)
+    out = out_dtype or x.dtype
+    return (dx[:, :, :S].to(out), ddt[:, :, :S], dA.float(),
+            dB[:, :S].to(out), dC[:, :S].to(out))
+
+
+def test_k6b_bf16_split_holds_the_plain_version(rng):
+    """The arithmetic of K6b's bf16 route, emulated on the CPU at a small
+    shape (two full chunks and a ragged tail, a nonzero final-state
+    cotangent): with every float32 operand split into three bf16 terms its
+    float32 gradients lie within 1e-5 of each row's largest |grad| of the
+    plain version's, and its bf16 outputs within ``K4B_ROW_TOL`` (the card's
+    limit) with at least 4x to spare. Two terms and a single bf16 rounding
+    of P alone (in P^T dy) move the gradients more; the test records their
+    errors and P's margin to the limit (``-s`` prints them)."""
+    smoke = _load_chip_smoke()
+    x, dt, A, B, C, dy, dstate = _ssd_inputs(rng, torch.bfloat16, 1, 3, 45,
+                                             8, 16, 16)
+    args = (x.transpose(1, 2), dt.transpose(1, 2), A, B, C,
+            dy.transpose(1, 2), dstate)
+    rows = lambda r: (r[0], r[1], r[2][None], r[3], r[4])  # noqa: E731
+    wide = [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+    want32 = ssd_scan_bwd_plain(*wide, chunk=16)
+    split32 = _k6b_bf16_route(*args, 16, out_dtype=torch.float32)
+    once32 = _k6b_bf16_route(*args, 16, p_terms=1, out_dtype=torch.float32)
+    two32 = _k6b_bf16_route(*args, 16, terms=2, out_dtype=torch.float32)
+    err_split = smoke.k4b_row_err(rows(split32), rows(want32))
+    err_two = smoke.k4b_row_err(rows(two32), rows(want32))
+    err_once = smoke.k4b_row_err(rows(once32), rows(want32))
+    err_bf16 = smoke.k4b_row_err(rows(_k6b_bf16_route(*args, 16)),
+                                 rows(ssd_scan_bwd_plain(*args, chunk=16)))
+    print(f"K6b bf16 route: three terms {err_split:.3g}, two {err_two:.3g}, "
+          f"P rounded once {err_once:.3g} ({smoke.K4B_ROW_TOL / err_once:.3g}x "
+          f"under the limit), bf16 outputs {err_bf16:.3g} of "
+          f"{smoke.K4B_ROW_TOL:.3g}")
+    assert err_split <= 1e-5 and err_split <= err_two
+    assert err_bf16 <= smoke.K4B_ROW_TOL / 4
+    assert err_once > 100 * err_split
 
 
 @pytest.mark.parametrize("fault", ["dfinal", "unshifted"])
