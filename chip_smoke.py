@@ -61,10 +61,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flash decode (K5) at llama's decode shape (k/v (1, 8, 32, 64), length
    33), at B=4, S=4096 with ragged lengths and one length above S, and at
    recurrentgemma-9b's (head_dim 256, one KV head: its 32-slot serving
-   ring and a full 2,048-slot one, in bf16 and float32), within 5e-5 in
-   float32 and 3e-2 in bf16 (the Griffin shapes also against the literal
-   oracles ``attention_ref`` and ``decode_attention_ref`` within the same
-   limits), in bf16 also each (batch, head) row within
+   ring and a full 2,048-slot one, in bf16 and float32), and at the
+   decoder's head_dim 128 (K4 at olmoe-1b-7b's prefill, q/k/v (1, 16, 32,
+   128), and at internvl2-26b's, q (1, 48, 1056, 128) k/v (1, 8, 1056,
+   128); K5 at olmoe's decode step, k/v (1, 16, 32, 128), length 33),
+   within 5e-5 in
+   float32 and 3e-2 in bf16 (the Griffin and head_dim-128 shapes also
+   against the literal oracles ``attention_ref`` and
+   ``decode_attention_ref`` within the same limits), in bf16 also each (batch, head) row within
    2**-6 of its largest |output| (``row_err``; two planted faults, a dropped
    split and one masked slot let through, must exceed that limit:
    ``fault_row_err``), its row recording the split count at each
@@ -146,8 +150,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    eager step (bit-equal over 8 steps) and the prefill replayed from its
    CUDA graph to the eager prefill (logits and every cache tensor
    bit-equal, on two prompts), and time prefill (eager and graph) and
-   decode;
-5. serve live, for each of the three models: calibrate the slice catalog at
+   decode; the same for olmoe-1b-7b (64 experts, top-8; float32 at full
+   width and 2 of its 16 layers, where the card must also route as the
+   CPU does: the same experts chosen and the same assignments kept for
+   every token of every layer and step, the smallest top-k margin printed;
+   bf16 at full depth), then llama3.2-1b with the int8 KV cache in bf16
+   at full depth (logits over 8 decode steps within 2% of the
+   unquantized model's scale on the same weights, the prefill and decode
+   graphs bit-equal to the eager steps, the int8 K/V and scales
+   included), then internvl2-26b (float32 at full width and 2 of its 48
+   layers, card vs CPU, a prefill of 1,024 vision embeddings and 32
+   tokens and 8 decode steps; one bf16 eager prefill with the vision
+   prefix at full depth, 37.0 GiB of weights: time, peak memory, finite
+   logits);
+5. serve live, for each of the four models: calibrate the slice catalog at
    full width (slices of 2, 4 and 8 chips; of 4 and 8 for
    recurrentgemma-9b, of which three executors fit on the card; 8 tasks, 1
    cold start each) and serve 48 Poisson requests (20/s, 96 tokens on
@@ -161,7 +177,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    graphs replay it ``n_layers`` times and decode graphs no kernel of the
    port; K3, K4 and K5 for recurrentgemma-9b, whose prefill graphs replay
    K3 once per recurrent layer and K4 once per attention layer, and decode
-   graphs K5 once per attention layer;
+   graphs K5 once per attention layer; K4 and K5 for olmoe-1b-7b (slices
+   of 2, 4 and 8), as for llama3.2-1b;
 6. launch K4 in float32 100 times at its card test's first case,
    (1, 32, 32, 8, 64) causal, after the live serves in this process: every
    output must have the same bits (recorded in K4's row with each side's
@@ -204,7 +221,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    float32 masters, remat "full", 10 steps: mamba2-780m at full width and
    depth, B=2, S=2048 (K6 96 and K6b 48 launches a step), and
    recurrentgemma-9b at full width cut to 3 layers (one (rec, rec, attn)
-   group), B=1, S=4096 (K3 4, K3b 2, K4 2, K4b 1 a step); every slice's
+   group), B=1, S=4096 (K3 4, K3b 2, K4 2, K4b 1 a step); olmoe-1b-7b at
+   full width cut to 4 of its 16 layers, B=2, S=2048 (K4 8 and K4b 4 a
+   step; beside it K4b at its training attention, q/k/v (2, 16, 2048,
+   128), and a float32 step of 2 layers, card vs CPU, the aux loss
+   included); every slice's
    losses finite and falling and its peak allocated memory under 90% of
    the card. This phase reads its launches from ``kernels.recording()``
    blocks around each step (the float32 steps, the slices' 10 steps and
@@ -224,6 +245,7 @@ graphs' own tally (``serving.engine.replayed_launches``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -301,13 +323,29 @@ PROMPT_LEN, DECODE_STEPS, SSM_LONG_PROMPT = 32, 8, 300
 # live serve's 90% memory limit: it serves two cloud slices and the edge
 HYBRID_ARCH, HYBRID_DEPTH, HYBRID_LONG_PROMPT = "recurrentgemma-9b", 5, 2304
 WINDOW = 2048  # recurrentgemma-9b's local-attention window
-LIVE_SLICES = {ARCH: (2, 4, 8), SSM_ARCH: (2, 4, 8), HYBRID_ARCH: (4, 8)}
+# olmoe-1b-7b (64 experts, top-8; 6.92 B parameters, 12.9 GiB an executor
+# in bf16): its float32 card-vs-CPU check runs at full width and 2 of its
+# 16 layers (every prefill and decode step runs the expert products over
+# all 64 experts x 40 slots, which makes the CPU's side slow at full
+# depth), the routing held equal too; its bf16 checks, its live serve and
+# its training slice's width are full. internvl2-26b: float32 at full
+# width and 2 of 48 layers with its 1,024-embedding vision prefix and 32
+# tokens, then one bf16 eager prefill at full depth (37.0 GiB of weights)
+MOE_ARCH, MOE_DEPTH = "olmoe-1b-7b", 2
+VLM_ARCH, VLM_DEPTH = "internvl2-26b", 2
+# llama3.2-1b with the int8 KV cache, bf16: the logits over 8 decode steps
+# within KV_QUANT_TOL of the unquantized model's largest |logit| (the
+# reference's tests/test_perf_knobs.py::test_kv_quant_decode_close)
+KV_QUANT_TOL = 0.02
+LIVE_SLICES = {ARCH: (2, 4, 8), SSM_ARCH: (2, 4, 8), HYBRID_ARCH: (4, 8),
+               MOE_ARCH: (2, 4, 8)}
 LIVE_C_MAX, LIVE_ALPHA = 0.004, 0.02
 # the kernels each arch's live serve must launch (eagerly or from a graph)
 LIVE_KERNELS = {ARCH: ("flash_attention", "decode_attention"),
                 SSM_ARCH: ("ssd_scan",),
                 HYBRID_ARCH: ("linear_scan", "flash_attention",
-                              "decode_attention")}
+                              "decode_attention"),
+                MOE_ARCH: ("flash_attention", "decode_attention")}
 
 # phase 7 (train): K4b at llama3.2-1b's training attention and at
 # recurrentgemma-9b's (B, H, Hkv, S, D). Float32 gradients within
@@ -359,6 +397,12 @@ HYBRID_STEP_LAYERS, HYBRID_STEP_S = 3, 160
 # allocated memory under PEAK_FRACTION of the card
 SSM_TRAIN_B, SSM_TRAIN_S = 2, 2048
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_S = 3, 1, 4096
+# olmoe-1b-7b at full width cut to 4 of its 16 layers (1.88 B parameters:
+# 30 GiB of float32 masters, gradients and moments; all 16 would take
+# ~111 GB), B=2, S=2048; K4b at its training attention (B, H, Hkv, S, D):
+# head_dim 128, multi-head
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 4, 2, 2048
+MOE_ATTN = (2, 16, 16, 2048, 128)
 PEAK_FRACTION = 0.9
 
 DECISION_COLS = ("predicted_cold", "feasible")
@@ -415,9 +459,14 @@ def main() -> int:
           SSM_LONG_TOL)
     timed("model hybrid", phase_model, dev, HYBRID_ARCH, HYBRID_LONG_PROMPT,
           FULL_WIDTH_TOL, HYBRID_DEPTH)
+    timed("model moe", phase_model, dev, MOE_ARCH, 0, FULL_WIDTH_TOL,
+          MOE_DEPTH)
+    timed("model kv_quant", phase_kv_quant, dev)
+    timed("model vlm", phase_vlm, dev)
     lives = [timed("live", phase_live, dev, ARCH),
              timed("live ssm", phase_live, dev, SSM_ARCH),
-             timed("live hybrid", phase_live, dev, HYBRID_ARCH)]
+             timed("live hybrid", phase_live, dev, HYBRID_ARCH),
+             timed("live moe", phase_live, dev, MOE_ARCH)]
     repeat = timed("k4 f32 repeat", fa_f32_repeat, dev)
     trained = timed("train", phase_train, dev, card)
     rows += trained["rows"]
@@ -1354,7 +1403,15 @@ def phase_attention(dev) -> list[dict]:
                "griffin_s4096": fa_case(g4k, bf16, dev, True, WINDOW, 10,
                                         ref=True),
                "griffin_s4096_f32": fa_case(g4k, f32, dev, True, WINDOW, 5,
-                                            ref=True)}
+                                            ref=True),
+               # the decoder's head_dim-128 shapes: olmoe-1b-7b's serving
+               # prefill (16 heads, multi-head) and internvl2-26b's prefill
+               # of 1,024 vision embeddings and 32 tokens (48 query heads on
+               # 8 KV heads)
+               "olmoe_s32": fa_case((1, 16, 16, PROMPT_LEN, PROMPT_LEN, 128),
+                                    bf16, dev, True, 0, 200, ref=True),
+               "internvl2_s1056": fa_case((1, 48, 8, 1056, 1056, 128), bf16,
+                                          dev, True, 0, 20, ref=True)}
     for tag, c in griffin.items():
         extra.update({f"{tag}_{key}": c[key] for key in
                       ("ms", "eager_ms", "plain_ms", "library_ms", "err",
@@ -1369,7 +1426,11 @@ def phase_attention(dev) -> list[dict]:
                       "s2048: q (1, 32, 2048, 64) k/v (1, 8, 2048, 64); "
                       "griffin_s32 / griffin_s4096: q (1, 16, 32 / 4096, "
                       "256) k/v (1, 1, 32 / 4096, 256) causal, window 2048 "
-                      "(recurrentgemma-9b), ref_err against attention_ref",
+                      "(recurrentgemma-9b), ref_err against attention_ref; "
+                      "olmoe_s32: q/k/v (1, 16, 32, 128) causal "
+                      "(olmoe-1b-7b's prefill); internvl2_s1056: q (1, 48, "
+                      "1056, 128) k/v (1, 8, 1056, 128) causal "
+                      "(internvl2-26b's vision prefix and 32 tokens)",
                 **extra)]
     # (B, H, Hkv, 1, S, D): a decode step of the serving executor, whose
     # lengths run past its 32-slot cache (pos + 1 >= 33)
@@ -1402,7 +1463,11 @@ def phase_attention(dev) -> list[dict]:
                "griffin_s2048": fd_case(g2k, bf16, dev, [WINDOW], 50,
                                         ref=True),
                "griffin_s2048_f32": fd_case(g2k, f32, dev, [WINDOW], 50,
-                                            ref=True)}
+                                            ref=True),
+               # olmoe-1b-7b's decode step: 16 heads on 16 KV heads at
+               # head_dim 128, past its 32-slot serving cache (length 33)
+               "olmoe_s32": fd_case((1, 16, 16, 1, PROMPT_LEN, 128), bf16,
+                                    dev, [PROMPT_LEN + 1], 200, ref=True)}
     for tag, c in griffin.items():
         extra.update({f"{tag}_{key}": c[key] for key in
                       ("ms", "eager_ms", "plain_ms", "library_ms", "err",
@@ -1421,7 +1486,9 @@ def phase_attention(dev) -> list[dict]:
                           "4103/1000/3001/17; griffin_s32 / griffin_s2048: q "
                           "(1, 16, 1, 256) k/v (1, 1, 32 / 2048, 256) full "
                           "(recurrentgemma-9b), ref_err against "
-                          "decode_attention_ref", **extra))
+                          "decode_attention_ref; olmoe_s32: q (1, 16, 1, "
+                          "128) k/v (1, 16, 32, 128) length 33 "
+                          "(olmoe-1b-7b's decode step)", **extra))
     return rows
 
 
@@ -1723,17 +1790,19 @@ def phase_model(dev, arch, long_prompt=0, long_tol=FULL_WIDTH_TOL,
     params = model.init(gen, device=dev)
     cpu_params = {k: v.cpu() for k, v in params.items()}
     n_params = sum(v.numel() for v in params.values())
-    runs, long_s = {}, {}
+    runs, long_s, routes = {}, {}, {}
     for where, p in (("cuda", params), ("cpu", cpu_params)):
         d = dev if where == "cuda" else torch.device("cpu")
-        logits, cache = model.prefill(
-            p, {"tokens": torch.as_tensor(prompt, device=d)})
-        out = [logits.cpu()]
-        for t in forced:  # teacher-forced (the dense cache: past its slots)
-            logits, cache = model.decode_step(
-                p, cache, {"token": torch.tensor([t], dtype=torch.int32,
-                                                 device=d)})
-            out.append(logits.cpu())
+        with routes_recorded(routes.setdefault(where, [])):
+            logits, cache = model.prefill(
+                p, {"tokens": torch.as_tensor(prompt, device=d)})
+            out = [logits.cpu()]
+            for t in forced:  # teacher-forced (the dense cache: past its
+                # slots)
+                logits, cache = model.decode_step(
+                    p, cache, {"token": torch.tensor([t], dtype=torch.int32,
+                                                     device=d)})
+                out.append(logits.cpu())
         long_run = None
         if long_prompt:
             tl = time.perf_counter()
@@ -1761,6 +1830,8 @@ def phase_model(dev, arch, long_prompt=0, long_tol=FULL_WIDTH_TOL,
     if max(errs) > FULL_WIDTH_TOL or cache_err > FULL_WIDTH_TOL:
         fail(f"{arch} full-width card logits or cache differ from the CPU's "
              f"by {max(errs)} / {cache_err}")
+    if cfg.n_experts:
+        same_routes(arch, routes["cuda"], routes["cpu"])
     if long_prompt:
         (la, ca), (lb, cb) = runs["cuda"][2], runs["cpu"][2]
         long_err = max_err(la, lb)
@@ -1844,6 +1915,235 @@ def phase_model(dev, arch, long_prompt=0, long_tol=FULL_WIDTH_TOL,
         f"graph; decode step {step_ms:.3f} ms from the graph, "
         f"{eager_ms:.3f} ms eager; peak allocated {mem:.1f} GiB")
     del params, graph, pgraph, cache, c2, eager
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def routes_recorded(store: list):
+    """While open, every MoE router call (``modeling.moe._route``) appends
+    to ``store`` the experts each token chose and those it kept, (B, nG, g,
+    E) bool masks on the CPU, and the smallest gap between a token's K-th
+    and (K+1)-th probability (its top-k margin). Outside an MoE model it
+    records nothing."""
+    import torch
+
+    from repro_torch.modeling import moe
+
+    route = moe._route
+
+    def recording(cfg, p, xg, C):
+        out = route(cfg, p, xg, C)
+        probs, _, _, keep, eoh, _ = out
+        K = cfg.top_k
+        top = torch.topk(probs, min(K + 1, probs.shape[-1]), dim=-1).values
+        margin = float((top[..., K - 1] - top[..., K]).min()) \
+            if top.shape[-1] > K else float("inf")
+        store.append({"chosen": eoh.amax(dim=-2).bool().cpu(),
+                      "kept": (eoh * keep[..., None]).amax(dim=-2).bool()
+                      .cpu(), "margin": margin})
+        return out
+
+    moe._route = recording
+    try:
+        yield store
+    finally:
+        moe._route = route
+
+
+def same_routes(arch, card: list, cpu: list) -> None:
+    """The card's routing against the CPU's, router call by router call:
+    the same experts chosen and the same assignments kept for every token
+    of every layer and step. On a mismatch the smallest top-k margin says
+    how near a tie the routers were."""
+    import torch
+
+    margin = min(r["margin"] for r in card + cpu)
+    chosen = sum(int(r["chosen"].sum()) for r in cpu)
+    kept = sum(int(r["kept"].sum()) for r in cpu)
+    log(f"[model] {arch} routing, card vs CPU: {len(card)} router calls, "
+        f"{chosen} assignments, {kept} kept, smallest top-k margin "
+        f"{margin:.3g}")
+    if len(card) != len(cpu) or not all(
+            torch.equal(a["chosen"], b["chosen"])
+            and torch.equal(a["kept"], b["kept"]) for a, b in zip(card, cpu)):
+        fail(f"{arch}: the card routes differently from the CPU (smallest "
+             f"top-k margin {margin:.3g})")
+
+
+def phase_kv_quant(dev) -> None:
+    """llama3.2-1b with the int8 KV cache in bf16 at full depth, as an
+    executor holds it: a (1, 32) prefill and 8 teacher-forced decode steps
+    (past the cache) beside the unquantized model on the same weights,
+    every step's logits within KV_QUANT_TOL of the unquantized model's
+    largest |logit|; then the prefill and the decode step replayed from
+    their CUDA graphs, bit-equal to the eager ones (logits, int8 K/V and
+    scales), with their times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.serving.engine import (
+        DecodeGraph,
+        PrefillGraph,
+        make_compiled_steps,
+    )
+
+    cfg = get_config(ARCH).with_updates(kv_quant=True)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, PROMPT_LEN)),
+                             dtype=torch.int32, device=dev)
+    forced = rng.integers(0, cfg.vocab, size=DECODE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        cfg, seed=1, device=dev)
+    plain = build_model(cfg.with_updates(kv_quant=False))
+    toks = [torch.tensor([t], dtype=torch.int32, device=dev) for t in forced]
+    lq, cq = prefill_fn(params, {"tokens": prompt})
+    l0, c0 = plain.prefill(params, {"tokens": prompt})
+    rel = []
+    for step in range(DECODE_STEPS + 1):
+        rel.append(float((lq - l0).abs().max() / l0.abs().max()))
+        if step < DECODE_STEPS:
+            lq, cq = decode_fn(params, cq, {"token": toks[step]})
+            l0, c0 = plain.decode_step(params, c0, {"token": toks[step]})
+    if cq["k"].dtype != torch.int8 or cq["k_scale"].dtype != torch.float32:
+        fail(f"the int8 cache holds {cq['k'].dtype} / {cq['k_scale'].dtype}")
+    # the graphs, against the eager steps
+    pgraph = PrefillGraph(prefill_fn, params, prompt)
+    gl, gc = pgraph.run()
+    el, ec = prefill_fn(params, {"tokens": prompt})
+    p_equal = torch.equal(gl, el) and set(gc) == set(ec) and all(
+        torch.equal(gc[k], ec[k]) for k in ec)
+    graph = DecodeGraph(decode_fn, params, ec)
+    graph.load(ec)
+    eager = {k: v.clone() for k, v in ec.items()}
+    d_equal = True
+    for tok in toks:
+        graph.token.copy_(tok)
+        g = graph.step().clone()
+        e, eager = decode_fn(params, eager, {"token": tok})
+        d_equal &= torch.equal(g, e)
+    d_equal &= all(torch.equal(graph.cache[k], eager[k]) for k in eager)
+    step_ms = cuda_ms(graph.step, 50)
+    prefill_graph_ms = cuda_ms(pgraph.run, 20)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[model] {ARCH} kv_quant bf16, {cfg.n_layers} layers: logits vs "
+        f"the unquantized model's, of its largest |logit|, per step "
+        f"{json.dumps(rel)} (limit {KV_QUANT_TOL}); graph prefill bit-equal "
+        f"to eager ({p_equal}), graph decode bit-equal over {DECODE_STEPS} "
+        f"steps ({d_equal}); prefill {prefill_graph_ms:.3f} ms from the "
+        f"graph, decode step {step_ms:.3f} ms from the graph (kernels per "
+        f"replay {json.dumps(graph.launches_per_replay)}); peak allocated "
+        f"{mem:.1f} GiB")
+    if max(rel) > KV_QUANT_TOL:
+        fail(f"{ARCH} kv_quant logits are {max(rel)} of the unquantized "
+             f"model's scale away")
+    if not (p_equal and d_equal):
+        fail(f"{ARCH} kv_quant graphs differ from the eager steps "
+             f"(prefill {p_equal}, decode {d_equal})")
+    del params, graph, pgraph, cq, c0, ec, eager
+    torch.cuda.empty_cache()
+
+
+def phase_vlm(dev) -> None:
+    """internvl2-26b: float32 at full width and VLM_DEPTH layers, card vs
+    CPU, a prefill of its 1,024 projected vision embeddings (random, from a
+    seed) and 32 tokens, then 8 teacher-forced decode steps, logits and
+    caches within FULL_WIDTH_TOL; then in bf16 at full depth, as an
+    executor would hold it, one eager prefill with the vision prefix:
+    time, peak memory, finite logits."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+
+    cfg = get_config(VLM_ARCH)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32)
+    vision = rng.normal(size=(1, cfg.vision_tokens, cfg.vision_feat_dim)) \
+        .astype(np.float32)
+    forced = rng.integers(0, cfg.vocab, size=DECODE_STEPS).astype(np.int32)
+    t0 = time.perf_counter()
+    cfg32 = cfg.with_updates(dtype="float32", n_layers=VLM_DEPTH)
+    model = build_model(cfg32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen, device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    n_params = sum(v.numel() for v in params.values())
+    runs, secs = {}, {}
+    for where, p in (("cuda", params), ("cpu", cpu_params)):
+        d = dev if where == "cuda" else torch.device("cpu")
+        tp = time.perf_counter()
+        logits, cache = model.prefill(p, {
+            "tokens": torch.as_tensor(prompt, device=d),
+            "vision_embeds": torch.as_tensor(vision, device=d)})
+        secs[where] = time.perf_counter() - tp
+        out = [logits.cpu()]
+        for t in forced:  # past the 1,056-slot cache
+            logits, cache = model.decode_step(p, cache, {
+                "token": torch.tensor([t], dtype=torch.int32, device=d)})
+            out.append(logits.cpu())
+        runs[where] = (out, {k: v.cpu() for k, v in cache.items()})
+    errs = [max_err(a, b) for a, b in zip(runs["cuda"][0], runs["cpu"][0])]
+    keys = [k for k in runs["cpu"][1] if k != "pos"]
+    cache_err = max(max_err(runs["cuda"][1][k], runs["cpu"][1][k])
+                    for k in keys)
+    S = cfg.vision_tokens + PROMPT_LEN
+    log(f"[model] {VLM_ARCH} full width, {VLM_DEPTH} layers, {n_params:,} "
+        f"parameters, float32, a prefill of {cfg.vision_tokens} vision "
+        f"embeddings and {PROMPT_LEN} tokens: card vs CPU max abs logit error "
+        f"per step {json.dumps(errs)} (logits up to "
+        f"{float(runs['cpu'][0][0].abs().max()):.2f}), cache error "
+        f"{cache_err:.3g}, tolerance {FULL_WIDTH_TOL}; the prefill took "
+        f"{secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s on the CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(torch.isfinite(a).all() for a in runs["cuda"][0]) \
+            or int(runs["cuda"][1]["pos"]) != S + DECODE_STEPS:
+        fail(f"{VLM_ARCH}: non-finite logits or a wrong position on the card")
+    if max(errs) > FULL_WIDTH_TOL or cache_err > FULL_WIDTH_TOL:
+        fail(f"{VLM_ARCH} full-width card logits or cache differ from the "
+             f"CPU's by {max(errs)} / {cache_err}")
+    del params, cpu_params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth, drawn as an executor draws its weights
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = model.init(gen, device=dev, cast=model.serving_cast)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weight_gib = sum(v.numel() * v.element_size()
+                     for v in params.values()) / 2**30
+    batch = {"tokens": torch.as_tensor(prompt, device=dev),
+             "vision_embeds": torch.as_tensor(vision, device=dev)}
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = cuda_ms(lambda: model.prefill(params, batch), 3)
+    mem = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"[model] {VLM_ARCH} bf16 serving weights, {cfg.n_layers} layers, "
+        f"{model.param_count():,} parameters ({weight_gib:.2f} GiB, drawn in "
+        f"{build_s:.1f} s): eager prefill of {cfg.vision_tokens} vision "
+        f"embeddings and {PROMPT_LEN} tokens {prefill_ms:.3f} ms, cache "
+        f"{tuple(cache['k'].shape)}, peak allocated {mem / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB")
+    if not torch.isfinite(logits).all():
+        fail(f"{VLM_ARCH} bf16 logits at full depth are not finite")
+    if mem >= PEAK_FRACTION * total:
+        fail(f"{VLM_ARCH} bf16 prefill peaked at {mem / 2**30:.1f} GiB, over "
+             f"{PEAK_FRACTION:.0%} of the card")
+    del params, cache, logits
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2546,12 +2846,12 @@ def train_step_check(dev, arch, layers, B, S, adamw=False) -> dict:
         t.requires_grad_(True)
     batch = make_pipeline(cfg, seq_len=S, global_batch=B, seed=0).batch(0)
     with kernels.recording() as launches:
-        (loss_d, _), g_d = _value_and_grad(
+        (loss_d, met_d), g_d = _value_and_grad(
             model, card, {k: torch.as_tensor(v, device=dev)
                           for k, v in batch.items()})
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (loss_c, _), g_c = _value_and_grad(
+    (loss_c, met_c), g_c = _value_and_grad(
         model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
     cpu_s = time.perf_counter() - t0
     rel = {k: float((g_d[k].cpu() - g_c[k]).abs().max()
@@ -2568,6 +2868,11 @@ def train_step_check(dev, arch, layers, B, S, adamw=False) -> dict:
            "mixer_grad_max_rel_err": max(v for k, v in rel.items()
                                          if any(m in k for m in mixer)),
            "launches": launches, "cpu_s": cpu_s}
+    if cfg.n_experts:  # the MoE layers' load-balancing loss
+        res["aux_card"], res["aux_cpu"] = float(met_d["aux"]), \
+            float(met_c["aux"])
+        res["aux_rel_err"] = abs(res["aux_card"] - res["aux_cpu"]) \
+            / abs(res["aux_cpu"])
     if adamw:
         # AdamW: the card's update against the CPU's on the card's gradients
         ocfg = opt.OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
@@ -2585,6 +2890,7 @@ def train_step_check(dev, arch, layers, B, S, adamw=False) -> dict:
             for k in cpu)
     log(f"[train] (b) {arch} float32 step, card vs CPU: {json.dumps(res)}")
     if res["loss_rel_err"] > FULL_WIDTH_TOL or \
+            res.get("aux_rel_err", 0.0) > FULL_WIDTH_TOL or \
             res["grad_norm_rel_err"] > FULL_WIDTH_TOL or \
             res["grad_max_rel_err"] > STEP_GRAD_TOL or \
             res.get("adamw_max_abs_err", 0.0) > ADAMW_TOL:
@@ -3034,7 +3340,9 @@ def phase_train(dev, card) -> dict:
               "griffin_s4096": k4b_case(GRIFFIN_ATTN, bf16, dev, True, WINDOW,
                                         5, ("delta", "window", "gqa")),
               "griffin_s4096_f32": k4b_case(GRIFFIN_ATTN, f32, dev, True,
-                                            WINDOW, 2)}
+                                            WINDOW, 2),
+              "olmoe_s2048": k4b_case(MOE_ATTN, bf16, dev, True, 0, 10,
+                                      ("delta", "gqa"))}
     free()
     k3b = k3b_case(dev)
     free()
@@ -3053,6 +3361,9 @@ def phase_train(dev, card) -> dict:
     steps.append(train_step_check(dev, HYBRID_ARCH, HYBRID_STEP_LAYERS,
                                   STEP_B, HYBRID_STEP_S))
     free()
+    steps.append(train_step_check(dev, MOE_ARCH, STEP_LAYERS, STEP_B,
+                                  STEP_S))
+    free()
     slices = [slice_run(dev, ARCH, TRAIN_B, TRAIN_S)]
     free()
     slices.append(slice_run(dev, SSM_ARCH, SSM_TRAIN_B, SSM_TRAIN_S))
@@ -3060,8 +3371,11 @@ def phase_train(dev, card) -> dict:
     slices.append(slice_run(dev, HYBRID_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S,
                             HYBRID_TRAIN_LAYERS))
     free()
+    slices.append(slice_run(dev, MOE_ARCH, MOE_TRAIN_B, MOE_TRAIN_S,
+                            MOE_TRAIN_LAYERS))
+    free()
     rs = restart_check(dev)
-    sl, ssm, hyb = slices
+    sl, ssm, hyb, olmoe = slices
     extra = {key: llama[key] for key in
              ("row_err", "fault_row_err", "k4_ms", "lse_err", "nsplit",
               "tflops", "run_tflops")}
@@ -3080,6 +3394,11 @@ def phase_train(dev, card) -> dict:
     extra["train_launches_per_step"] = sl["per_step"]["flash_attention_bwd"]
     extra["griffin_train_launches_per_step"] = \
         hyb["per_step"]["flash_attention_bwd"]
+    extra["olmoe_train_launches_per_step"] = \
+        olmoe["per_step"]["flash_attention_bwd"]
+    extra["olmoe_train_step_k4b_ms"] = {
+        k: v for k, v in olmoe["split_ms"]["bwd_kernels"].items()
+        if "fa_bwd" in k}
     rows = [row("flash_attention_bwd",
                 "src/repro_torch/csrc/flash_attention_bwd.cu",
                 "none; the reference differentiates its XLA chunked "
@@ -3090,7 +3409,9 @@ def phase_train(dev, card) -> dict:
                       "causal (llama3.2-1b's training step; f32: the same in "
                       "float32); griffin_s4096: q (1, 16, 4096, 256) k/v "
                       "(1, 1, 4096, 256) causal, window 2048 "
-                      "(recurrentgemma-9b), bf16 and float32",
+                      "(recurrentgemma-9b), bf16 and float32; olmoe_s2048: "
+                      "q/k/v (2, 16, 2048, 128) causal bf16 (olmoe-1b-7b's "
+                      "training step)",
                 **extra)]
     rows.append(row(
         "linear_scan_bwd", "src/repro_torch/csrc/linear_scan.cu",

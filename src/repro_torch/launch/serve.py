@@ -8,8 +8,9 @@ Table-V live-prototype analog. Like the reference it serves the arch's
 smoke-size reduction (``configs.smoke_config``).
 
 Example (on the CUDA card; ``--device cpu`` runs it on the CPU;
-``--arch mamba2-780m`` serves the Mamba-2 LM and ``--arch recurrentgemma-9b``
-the Griffin hybrid instead of llama3.2-1b):
+``--arch mamba2-780m`` serves the Mamba-2 LM, ``--arch recurrentgemma-9b``
+the Griffin hybrid and ``--arch olmoe-1b-7b`` the MoE decoder instead of
+llama3.2-1b):
     PYTHONPATH=src python -m repro_torch.launch.serve --policy minlat \
         --n 120 --rate 20 --cmax 0.004 --alpha 0.02
 """

@@ -13,6 +13,8 @@ Examples:
         --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --smoke --device cpu --steps 60 --ckpt-dir ckpt --fail-at 25
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+        --layers 4 --batch 2 --seq 2048 --steps 10
 """
 
 from __future__ import annotations

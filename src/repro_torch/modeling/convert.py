@@ -2,9 +2,11 @@
 numpy arrays, becomes the port's parameter dict, so that both packages
 compute the same model (the tests carry the JAX params over this way). It
 goes through ``build_model(cfg).param_specs()``, so it covers every family
-the port has: the dense ``LM``, the SSM family's ``MambaLM`` and the
-hybrid family's ``GriffinLM`` (its stacked ``rec_layers/`` and
-``attn_layers/`` parameters carry over by name)."""
+the port has: the decoder ``LM`` (dense, MoE with its ``moe/`` and
+``shared_mlp/`` parameters and the grouped ``layers_dense/`` and
+``layers_moe/`` stacks, VLM with ``vision_proj/w``), the SSM family's
+``MambaLM`` and the hybrid family's ``GriffinLM`` (its stacked
+``rec_layers/`` and ``attn_layers/`` parameters carry over by name)."""
 
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Model registry: ArchConfig.family -> model class.
 
-The dense, SSM (Mamba-2) and hybrid (Griffin) families are ported; the
-others raise until their slice of the port (``ROADMAP.md``): the MoE and
-VLM families and the audio encoder.
+The decoder families (dense, MoE and VLM, all ``LM``), the SSM (Mamba-2)
+and hybrid (Griffin) families are ported; the audio encoder raises until
+its slice of the port (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -11,12 +11,9 @@ from repro_torch.modeling.griffin import GriffinLM
 from repro_torch.modeling.lm import LM
 from repro_torch.modeling.mamba import MambaLM
 
-FAMILIES = {"dense": LM, "ssm": MambaLM, "hybrid": GriffinLM}
-LATER = {
-    "moe": "the MoE/VLM slice",
-    "vlm": "the MoE/VLM slice",
-    "audio": "the audio-encoder slice",
-}
+FAMILIES = {"dense": LM, "moe": LM, "vlm": LM, "ssm": MambaLM,
+            "hybrid": GriffinLM}
+LATER = {"audio": "the audio-encoder slice"}
 
 
 def build_model(cfg):

@@ -2333,3 +2333,156 @@ def test_scan_float32_train_step_card_matches_cpu(cuda_device, arch):
     for k in g_c:
         err = float((g_d[k].cpu() - g_c[k]).abs().max())
         assert err <= 1e-4 * float(g_c[k].abs().max().clamp_min(1e-30)), k
+
+
+# ------------------------------- the MoE, grouped and int8-cache decoders
+def _decoder_variant(name, **upd):
+    """The smoke configs of the decoder's variants: olmoe-1b-7b's MoE
+    layers, its grouped ``moe_every=2`` layout at 4 layers (a dataclass
+    subclass adds the field ``LM`` reads with ``getattr``) and llama's int8
+    KV cache."""
+    import dataclasses
+
+    from repro_torch.configs import ArchConfig, smoke_config
+
+    @dataclasses.dataclass(frozen=True)
+    class Grouped(ArchConfig):
+        moe_every: int = 1
+
+    if name == "olmoe":
+        return smoke_config("olmoe-1b-7b").with_updates(**upd)
+    if name == "grouped":
+        cfg = smoke_config("olmoe-1b-7b").with_updates(n_layers=4)
+        return Grouped(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)},
+                       moe_every=2).with_updates(**upd)
+    return smoke_config("llama3.2-1b").with_updates(kv_quant=True, **upd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["olmoe", "grouped", "kv_quant"])
+def test_decoder_variants_card_match_cpu(cuda_device, name):
+    """Float32 on the card (K4, K5, cuBLAS) against the same weights on
+    the CPU: a (2, 12) prefill and 4 decode steps past the cache, logits
+    and caches within 1e-4 (the int8 cache's values off by one only where
+    a value sits on a rounding boundary; each of its steps from the CPU's
+    cache), and a float32 training step's
+    loss and gradients within 1e-4 of their scale."""
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = _decoder_variant(name, remat="full")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = {k: t.to(cuda_device) for k, t in cpu.items()}
+    toks = torch.arange(24, dtype=torch.int32).reshape(2, 12) * 5 % cfg.vocab
+    lg, cg = model.prefill(card, {"tokens": toks.to(cuda_device)})
+    lc, cc = model.prefill(cpu, {"tokens": toks})
+    for step in range(5):
+        assert (lg.cpu() - lc).abs().max().item() < 1e-4, step
+        for k in cc:
+            got, want = cg[k].cpu(), cc[k]
+            assert got.dtype == want.dtype, k
+            if want.dtype == torch.int8:
+                d = (got.int() - want.int()).abs()
+                assert d.max() <= 1 and d.count_nonzero() <= 0.005 * d.numel()
+            else:
+                assert (got.double() - want.double()).abs().max() < 1e-4, k
+        if cfg.kv_quant:  # each step from the CPU's cache: a value that
+            # rounds the other way would move every later step
+            cg = {k: v.to(cuda_device, copy=True) for k, v in cc.items()}
+        tok = torch.tensor([step, 3 * step + 1], dtype=torch.int32)
+        lg, cg = model.decode_step(card, cg, {"token": tok.to(cuda_device)})
+        lc, cc = model.decode_step(cpu, cc, {"token": tok})
+    batch = make_pipeline(cfg, seq_len=32, global_batch=2, seed=0).batch(0)
+    for t in (*cpu.values(), *card.values()):
+        t.requires_grad_(True)
+    (loss_d, met_d), g_d = _value_and_grad(model, card, {
+        k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()})
+    (loss_c, met_c), g_c = _value_and_grad(
+        model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    assert abs(float(met_d["aux"]) - float(met_c["aux"])) <= 1e-4
+    for k in g_c:
+        err = float((g_d[k].cpu() - g_c[k]).abs().max())
+        assert err <= 1e-4 * max(float(g_c[k].abs().max()), 1.0), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["olmoe", "grouped", "kv_quant"])
+def test_decoder_variants_graphs_bit_equal_to_eager_on_card(cuda_device,
+                                                            name):
+    """In bf16 as an executor serves them: the prefill replayed from its
+    CUDA graph (two prompts) and 6 decode steps replayed from theirs (past
+    the cache), each bit-equal to the eager step, logits and every cache
+    tensor (the int8 cache's scales included); the graphs replay K4 and K5
+    once per layer."""
+    from repro_torch.serving.engine import (
+        DecodeGraph,
+        PrefillGraph,
+        make_compiled_steps,
+        replayed_launches,
+        reset_replayed_launches,
+    )
+
+    cfg = _decoder_variant(name, dtype="bfloat16")
+    model, params, prefill_fn, decode_fn = make_compiled_steps(
+        cfg, seed=0, device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab, (2, 12), generator=gen,
+                             dtype=torch.int32).to(cuda_device)
+               for _ in range(2)]
+    pgraph = PrefillGraph(prefill_fn, params, prompts[0])
+    assert pgraph.launches_per_replay == {"flash_attention": cfg.n_layers}
+    reset_replayed_launches()
+    for tokens in prompts:
+        pgraph.tokens.copy_(tokens)
+        logits, cache = pgraph.run()
+        e_logits, e_cache = prefill_fn(params, {"tokens": tokens})
+        assert torch.equal(logits, e_logits)
+        assert set(cache) == set(e_cache)
+        for k in e_cache:
+            assert torch.equal(cache[k], e_cache[k]), k
+    dgraph = DecodeGraph(decode_fn, params, e_cache)
+    assert dgraph.launches_per_replay == {"decode_attention": cfg.n_layers}
+    dgraph.load(e_cache)
+    eager = {k: v.clone() for k, v in e_cache.items()}
+    for step in range(6):
+        dgraph.token.fill_(step)
+        got = dgraph.step().clone()
+        want, eager = decode_fn(params, eager, {"token": torch.full(
+            (2,), step, dtype=torch.int32, device=cuda_device)})
+        assert torch.equal(got, want), step
+    for k in eager:
+        assert torch.equal(dgraph.cache[k], eager[k]), k
+    assert replayed_launches() == {"flash_attention": 2 * cfg.n_layers,
+                                   "decode_attention": 6 * cfg.n_layers}
+
+
+@pytest.mark.cuda
+def test_moe_train_step_recording_counts_k4_and_k4b_on_card(cuda_device):
+    """One bf16 training step of the smoke olmoe-1b-7b (remat "full") with
+    its loss and ``torch.autograd.grad`` inside a ``recording()`` block:
+    K4 twice a layer (forward and recompute), K4b once; loss, aux loss and
+    gradients finite, the router's gradient float32 and nonzero."""
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = _decoder_variant("olmoe", dtype="bfloat16", remat="full")
+    model = build_model(cfg)
+    params = {k: t.to(cuda_device).requires_grad_(True) for k, t in
+              model.init(torch.Generator().manual_seed(0)).items()}
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             make_pipeline(cfg, seq_len=64, global_batch=2, seed=0)
+             .batch(0).items()}
+    with kernels.recording() as tally:
+        (loss, met), grads = _value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert tally == {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    assert torch.isfinite(loss) and float(met["aux"]) > 0
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    router = grads["layers/moe/router/w"]
+    assert router.dtype == torch.float32 and bool(router.any())

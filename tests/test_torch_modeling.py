@@ -21,6 +21,8 @@ reference's kernel tolerances); 1e-4 for LM logits and caches in float32
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,7 +40,7 @@ from repro.modeling import layers as jax_layers
 from repro.modeling.registry import build_model as jax_build_model
 from repro.serving.engine import generate as jax_generate
 from repro_torch import kernels
-from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.configs import ARCHS, ArchConfig, get_config, smoke_config
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.modeling import layers
@@ -300,14 +302,17 @@ def test_configs_mirror_reference():
 
 
 def test_param_specs_and_count_mirror_reference():
-    for cfg, jcfg in ((get_config("llama3.2-1b"),
-                       jax_get_config("llama3.2-1b")),
-                      _both("gemma-2b"), _both("nemotron-4-340b")):
+    full = [(get_config(n), jax_get_config(n)) for n in
+            ("llama3.2-1b", "olmoe-1b-7b", "llama4-maverick-400b-a17b",
+             "internvl2-26b")]
+    for cfg, jcfg in (*full, _both("gemma-2b"), _both("nemotron-4-340b"),
+                      _both("olmoe-1b-7b"), _both("internvl2-26b")):
         jspecs = jax_build_model(jcfg).param_specs()
         specs = build_model(cfg).param_specs()
         assert {k: (v.shape, v.init, v.scale) for k, v in specs.items()} == \
             {k: (v.shape, v.init, v.scale) for k, v in jspecs.items()}
     assert build_model(get_config("llama3.2-1b")).param_count() == 1_498_482_688
+    assert build_model(get_config("olmoe-1b-7b")).param_count() == 6_919_096_320
 
 
 def test_init_params_is_seeded_and_shaped():
@@ -332,15 +337,23 @@ def test_init_params_is_seeded_and_shaped():
     assert abs(float(p["e/w"].std()) - 0.5) < 0.1
 
 
-def test_serving_cast_keeps_norms_float32():
-    cfg = smoke_config("llama3.2-1b").with_updates(dtype="bfloat16")
+@pytest.mark.parametrize("name", ["llama3.2-1b", "olmoe-1b-7b",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-26b"])
+def test_serving_cast_keeps_norms_float32(name):
+    """A bf16 executor's parameters: norms and the MoE router's weights
+    float32 (the reference uses them so: it never casts ``router/w``),
+    every other matrix bf16."""
+    cfg = smoke_config(name).with_updates(dtype="bfloat16")
     model = LM(cfg)
     g = torch.Generator()
     g.manual_seed(0)
     params = model.init(g, cast=model.serving_cast)
     for path, t in params.items():
-        want = torch.float32 if "/ln_" in "/" + path else torch.bfloat16
-        assert t.dtype == want, path
+        f32 = "/ln_" in "/" + path or path.endswith("/moe/router/w")
+        assert t.dtype == (torch.float32 if f32 else torch.bfloat16), path
+    assert any(p.endswith("moe/router/w") for p in params) == \
+        bool(cfg.n_experts)
     masters = model.init(torch.Generator().manual_seed(0))
     assert torch.equal(masters["embed/w"].to(torch.bfloat16),
                        params["embed/w"])
@@ -359,11 +372,19 @@ def test_converter_rejects_mismatched_params():
         lm_params_from_numpy(cfg, arrays)
 
 
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "internvl2-26b",
-                                  "hubert-xlarge"])
+@pytest.mark.parametrize("name", ["hubert-xlarge"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(smoke_config(name))
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "internvl2-26b",
+                                  "llama4-maverick-400b-a17b"])
+def test_decoder_families_build_lm(name):
+    """The MoE and VLM families are the decoder ``LM`` (their parity with
+    the reference is held in ``tests/test_torch_moe.py``)."""
+    for cfg in (get_config(name), smoke_config(name)):
+        assert type(build_model(cfg)) is LM
 
 
 def test_hybrid_family_builds_griffin():
@@ -377,8 +398,18 @@ def test_hybrid_family_builds_griffin():
                       GriffinLM)
 
 
+@dataclasses.dataclass(frozen=True)
+class _GroupedConfig(ArchConfig):
+    moe_every: int = 1  # read by LM with getattr, as the reference reads it
+
+
 def test_lm_raises_for_unported_options():
-    with pytest.raises(NotImplementedError, match="slice"):
-        LM(smoke_config("llama3.2-1b").with_updates(kv_quant=True))
-    with pytest.raises(NotImplementedError, match="slice"):
-        LM(smoke_config("llama3.2-1b").with_updates(n_experts=4, top_k=1))
+    """The grouped ``moe_every`` layout with the int8 KV cache is refused,
+    as the reference's assert refuses it; either alone builds."""
+    cfg = smoke_config("olmoe-1b-7b").with_updates(n_layers=4)
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    grouped = _GroupedConfig(**fields, moe_every=2)
+    assert LM(grouped)._layout() == (2, 1)
+    assert LM(cfg.with_updates(kv_quant=True))._layout() == (4, 0)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        LM(grouped.with_updates(kv_quant=True))

@@ -166,6 +166,11 @@ def test_serving_bytes_and_resident_capacity():
     assert serving_bytes(cfg) == 2 * (n - f32 - norms) + 4 * (f32 + norms)
     assert 22.5e9 < serving_bytes(cfg) < 22.7e9
     assert resident_capacity(cfg, (torch.device("cpu"),)) is None
+    # olmoe-1b-7b: its 16 routers (2,048 x 64) and norms stay float32
+    cfg = get_config("olmoe-1b-7b")
+    f32 = 16 * 2048 * 64 + (2 * 16 + 1) * 2048
+    n = build_model(cfg).param_count()
+    assert serving_bytes(cfg) == 2 * (n - f32) + 4 * f32
 
 
 def test_pool_queues_at_its_resident_cap(tiny_cfg):
@@ -468,7 +473,8 @@ def test_griffin_live_calibrate_then_serve(monkeypatch):
     assert rt.backend.pool.peak_resident >= 1
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m", HYBRID])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m", HYBRID,
+                                  "olmoe-1b-7b"])
 def test_serve_cli_on_cpu(arch, capsys):
     """The port's serve CLI with ``--device cpu`` serves the smoke
     reduction of every ported family."""

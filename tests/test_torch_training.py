@@ -396,6 +396,15 @@ def test_train_cli_restarts_on_cpu(tmp_path, capsys):
     assert "done: step=6" in out and "restarts=1" in out
 
 
+def test_train_cli_trains_moe_on_cpu(capsys):
+    """The MoE family through the CLI: olmoe-1b-7b's smoke config."""
+    assert train_cli.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
+                           "cpu", "--steps", "3", "--batch", "2", "--seq",
+                           "16"]) == 0
+    out = capsys.readouterr().out
+    assert "family=moe" in out and "done: step=3" in out
+
+
 def test_train_needs_a_device_or_cpu():
     """Without ``device="cpu"`` the loop runs on the card, and raises where
     there is none (checked before any work)."""
