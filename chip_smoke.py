@@ -58,6 +58,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    k/v (1, 8, 32, 64), causal) and at S=2048 (causal, and windowed), and at
    recurrentgemma-9b's (head_dim 256, 16 query heads on one KV head, window
    2048: its serving prefill, S=32, and S=4096 in bf16 and float32), and
+   at hubert-xlarge's encoder attention, non-causal at head_dim 80 (q/k/v
+   (8, 16, 781, 80) in bf16 and float32, also against ``attention_ref``,
+   and (1, 16, 32768, 80) in bf16, whose plain version runs in blocks of
+   1,024 query rows; in bf16 each output row also within 2**-6 of its
+   largest |output|, which planted faults, the last partial key tile left
+   unmasked and a key tile dropped, must exceed), and
    flash decode (K5) at llama's decode shape (k/v (1, 8, 32, 64), length
    33), at B=4, S=4096 with ragged lengths and one length above S, and at
    recurrentgemma-9b's (head_dim 256, one KV head: its 32-slot serving
@@ -162,7 +168,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers, card vs CPU, a prefill of 1,024 vision embeddings and 32
    tokens and 8 decode steps; one bf16 eager prefill with the vision
    prefix at full depth, 37.0 GiB of weights: time, peak memory, finite
-   logits);
+   logits); then hubert-xlarge, the audio encoder (945 M parameters,
+   non-causal attention at head_dim 80): float32 at full width and 2 of
+   its 48 layers, card vs CPU, one (1, 256) batch of frames masked at its
+   ``mask_prob``: encode logits, loss and every gradient within
+   ``FULL_WIDTH_TOL`` (K4 once a layer); then bf16 at full depth as
+   ``make_compiled_steps`` holds it, an encode at (B, S) = (8, 781) and at
+   (1, 32768) through its prefill step, each with K4 48 launches, finite
+   float32 logits, its median ms and the peak memory;
 5. serve live, for each of the four models: calibrate the slice catalog at
    full width (slices of 2, 4 and 8 chips; of 4 and 8 for
    recurrentgemma-9b, of which three executors fit on the card; 8 tasks, 1
@@ -225,7 +238,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    full width cut to 4 of its 16 layers, B=2, S=2048 (K4 8 and K4b 4 a
    step; beside it K4b at its training attention, q/k/v (2, 16, 2048,
    128), and a float32 step of 2 layers, card vs CPU, the aux loss
-   included); every slice's
+   included); hubert-xlarge at full width and depth, B=8, S=781 (K4 96
+   and K4b 48 a step; beside it K4b at its attention, q/k/v (8, 16, 781,
+   80) non-causal, bf16 with the planted faults and float32, and a float32
+   step of 2 layers, card vs CPU, S=256); every slice's
    losses finite and falling and its peak allocated memory under 90% of
    the card. This phase reads its launches from ``kernels.recording()``
    blocks around each step (the float32 steps, the slices' 10 steps and
@@ -236,8 +252,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``{"ok": true, "device": {...}}``.
 
 A kernel's ``launches`` are its wrapper's count over its main paths' runs
-(the placement stream, the live serves and the three training slices): the
-calls that launched it (or
+(the placement stream, the encoder's two recorded encodes, the live serves
+and the training slices): the calls that launched it (or
 recorded it into a CUDA graph at a capture). The launches that prefill and
 decode graph replays run are counted apart, as ``graph_replayed``, from the
 graphs' own tally (``serving.engine.replayed_launches``).
@@ -404,6 +420,19 @@ HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_S = 3, 1, 4096
 MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 4, 2, 2048
 MOE_ATTN = (2, 16, 16, 2048, 128)
 PEAK_FRACTION = 0.9
+# hubert-xlarge, the audio encoder (945 M parameters, head_dim 80, its
+# attention non-causal): HuBERT's pretraining crops of 250,000 samples at
+# 16 kHz through the 320x frontend stub are 781 frames; prefill_32k's
+# sequence is 32,768 frames (its batch of 32 cut to 1). Phase 4: float32 at
+# full width and AUDIO_DEPTH of 48 layers, card vs CPU, on one (1, AUDIO_S)
+# batch masked at the config's mask_prob; bf16 encodes at full depth of
+# each (B, S) of AUDIO_ENCODES. K4 and K4b at its attention (B, H, Hkv, S,
+# D): phases 2 and 7. Phase 7: a float32 step of AUDIO_DEPTH layers, card
+# vs CPU, and the slice at full width and depth, (B, S) = (8, 781)
+AUDIO_ARCH, AUDIO_DEPTH, AUDIO_S = "hubert-xlarge", 2, 256
+AUDIO_ENCODES = ((8, 781), (1, 32_768))
+AUDIO_ATTN, AUDIO_LONG_ATTN = (8, 16, 16, 781, 80), (1, 16, 16, 32_768, 80)
+AUDIO_TRAIN_B, AUDIO_TRAIN_S = 8, 781
 
 DECISION_COLS = ("predicted_cold", "feasible")
 FLOAT_COLS = ("predicted_latency_ms", "predicted_cost", "allowed_cost")
@@ -463,6 +492,7 @@ def main() -> int:
           MOE_DEPTH)
     timed("model kv_quant", phase_kv_quant, dev)
     timed("model vlm", phase_vlm, dev)
+    audio = timed("model audio", phase_audio, dev)
     lives = [timed("live", phase_live, dev, ARCH),
              timed("live ssm", phase_live, dev, SSM_ARCH),
              timed("live hybrid", phase_live, dev, HYBRID_ARCH),
@@ -471,11 +501,12 @@ def main() -> int:
     trained = timed("train", phase_train, dev, card)
     rows += trained["rows"]
     # each kernel's launches over its main paths' runs: the placement
-    # stream's, every live serve's and the training slices' (counts zeroed
-    # before each)
+    # stream's, the encoder's encodes, every live serve's and the training
+    # slices' (counts zeroed before each)
     launches = dict(serve["launches"])
-    for name, n in trained["launches"].items():
-        launches[name] = launches.get(name, 0) + n
+    for path in (audio, trained):
+        for name, n in path["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     replayed = {}
     for live in lives:
         for name, n in live["launches"].items():
@@ -1175,9 +1206,39 @@ def attn_inputs(shape, dtype, dev, seed):
     return q, k, v
 
 
-def fa_case(shape, dtype, dev, causal, window, reps, ref=False):
+K4_TK = 64  # the key tile of K4's bf16 tensor-core kernel at D > 64
+
+
+def fa_planted(k, v, fault):
+    """K/V as a K4 with one fault planted would read them, for the plain
+    version to compute that kernel's output (non-causal shapes): ``tail``
+    leaves the last key tile's rows past Skv unmasked, read as the zeros
+    the kernel's tile loads put there (score 0, value 0); ``drop_tile``
+    leaves out the second key tile."""
+    import torch
+
+    Skv = k.shape[2]
+    if fault == "tail":
+        pad = -Skv % K4_TK
+        return tuple(torch.nn.functional.pad(t, (0, 0, 0, pad))
+                     for t in (k, v))
+    keep = torch.cat([torch.arange(K4_TK), torch.arange(2 * K4_TK, Skv)])
+    keep = keep.to(k.device)
+    return k[:, :, keep], v[:, :, keep]
+
+
+def fa_case(shape, dtype, dev, causal, window, reps, ref=False,
+            plain_rows=0, faults=()):
     """K4 vs its plain version (and SDPA's time) at one shape; with ``ref``
-    also vs the literal oracle ``attention_ref`` (in the model's layout)."""
+    also vs the literal oracle ``attention_ref`` (in the model's layout).
+    ``plain_rows`` (non-causal, unwindowed shapes only) runs the plain
+    version over that many query rows at a time, each block against every
+    key (the rows are independent there: the same values), where its full
+    (Sq, Skv) float32 score matrix would not fit on the card. With
+    ``faults`` (bf16, non-causal) also each (batch, head, query) row of the
+    output within DEC_ROW_TOL of its largest |output| (``row_err``), and
+    the outputs of ``fa_planted``'s faults, computed plainly, must break
+    that limit (``fault_row_err``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1191,14 +1252,43 @@ def fa_case(shape, dtype, dev, causal, window, reps, ref=False):
     q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + window)
     B, H, Hkv, Sq, Skv, D = shape
     kw = dict(causal=causal, window=window)
+    if plain_rows and (causal or window):
+        fail("fa_case: the plain version runs in query blocks only without "
+             "a mask")
+
+    if faults and (causal or window or dtype != torch.bfloat16):
+        fail("fa_case: planted faults are for bf16 non-causal shapes")
+
+    def plain(k=k, v=v):
+        if not plain_rows:
+            return flash_attention_plain(q, k, v, **kw)
+        return torch.cat([flash_attention_plain(q[:, :, i:i + plain_rows],
+                                                k, v, **kw)
+                          for i in range(0, Sq, plain_rows)], dim=2)
+
     got = flash_attention_bhsd(q, k, v, **kw)
-    want = flash_attention_plain(q, k, v, **kw)
+    want = plain()
     torch.cuda.synchronize()
     err = max_err(got, want)
     name = str(dtype).split(".")[-1]
     if err > ATTN_TOL[name]:
         fail(f"K4 {shape} {name} causal={causal} window={window} differs "
              f"from its plain version by {err}")
+    row_err, fault_row_err = None, {}
+    if faults:
+        row_err = k4b_row_err((got,), (want,))
+        if row_err > DEC_ROW_TOL:
+            fail(f"K4 {shape} bf16: a row differs from the plain version by "
+                 f"{row_err} of its largest |output| (limit {DEC_ROW_TOL})")
+        fault_row_err = {f: k4b_row_err((plain(*fa_planted(k, v, f)),),
+                                        (want,)) for f in faults}
+        log(f"[k4] {shape} bf16 non-causal: row error {row_err}, planted "
+            f"faults {json.dumps(fault_row_err)}, limit {DEC_ROW_TOL}")
+        missed = [f for f, e in fault_row_err.items() if e <= DEC_ROW_TOL]
+        if missed:
+            fail(f"K4 {shape}: the row limit {DEC_ROW_TOL} misses planted "
+                 f"faults {missed}: {fault_row_err}")
+    del want
     ref_err = None
     if ref:
         oracle = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), **kw)
@@ -1207,23 +1297,34 @@ def fa_case(shape, dtype, dev, causal, window, reps, ref=False):
         if ref_err > ATTN_TOL[name]:
             fail(f"K4 {shape} {name} causal={causal} window={window} differs "
                  f"from attention_ref by {ref_err}")
-    mask = _mask(Sq, Skv, causal, window, dev)
+    del got
+    if causal or window:
+        mask = _mask(Sq, Skv, causal, window, dev)
+        pairs = int(mask.sum())  # the (q, k) pairs this mask leaves live
+    else:
+        mask, pairs = None, Sq * Skv
     if window:
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask, enable_gqa=True)
     else:
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
-    pairs = int(mask.sum())  # the (q, k) pairs this mask leaves live
     esz = q.element_size()
     kernel = lambda: flash_attention_bhsd(q, k, v, **kw)  # noqa: E731
     return dict(
         ms=graph_ms(kernel, reps), eager_ms=cuda_ms(kernel, reps),
-        plain_ms=graph_ms(lambda: flash_attention_plain(q, k, v, **kw),
-                          max(reps // 10, 2)),
+        plain_ms=cuda_ms(plain, 1, warmup=0) if plain_rows
+        else graph_ms(plain, max(reps // 10, 2)),
         library_ms=graph_ms(sdpa, reps), err=err, ref_err=ref_err,
+        row_err=row_err, fault_row_err=fault_row_err,
         nbytes=esz * (2 * q.numel() + k.numel() + v.numel()),
         ops=4.0 * B * H * pairs * D, dtype=name)
+
+
+def square(shape):
+    """(B, H, Hkv, S, D) -> ``fa_case``'s (B, H, Hkv, S, S, D)."""
+    B, H, Hkv, S, D = shape
+    return (B, H, Hkv, S, S, D)
 
 
 def fa_f32_repeat(dev, n: int = 100) -> dict:
@@ -1411,11 +1512,30 @@ def phase_attention(dev) -> list[dict]:
                "olmoe_s32": fa_case((1, 16, 16, PROMPT_LEN, PROMPT_LEN, 128),
                                     bf16, dev, True, 0, 200, ref=True),
                "internvl2_s1056": fa_case((1, 48, 8, 1056, 1056, 128), bf16,
-                                          dev, True, 0, 20, ref=True)}
+                                          dev, True, 0, 20, ref=True),
+               # hubert-xlarge's encoder attention, non-causal at head_dim
+               # 80 (the 128-wide instantiation, 48 of its columns zero): a
+               # batch of HuBERT's 781-frame crops, and prefill_32k's
+               # 32,768-frame sequence (its plain version in query blocks)
+               # (in bf16 each output row is also held to its own scale,
+               # with planted faults: the last partial key tile unmasked
+               # (781 = 12 x 64 + 13) and a key tile dropped)
+               "hubert_s781": fa_case(square(AUDIO_ATTN), bf16, dev, False,
+                                      0, 20, ref=True,
+                                      faults=("tail", "drop_tile")),
+               "hubert_s781_f32": fa_case(square(AUDIO_ATTN), f32, dev,
+                                          False, 0, 5, ref=True),
+               "hubert_s32768": fa_case(square(AUDIO_LONG_ATTN), bf16, dev,
+                                        False, 0, 2, plain_rows=1024,
+                                        faults=("drop_tile",))}
+    extra["row_tol"] = DEC_ROW_TOL
     for tag, c in griffin.items():
         extra.update({f"{tag}_{key}": c[key] for key in
                       ("ms", "eager_ms", "plain_ms", "library_ms", "err",
                        "ref_err")})
+        if c["row_err"] is not None:
+            extra[f"{tag}_row_err"] = c["row_err"]
+            extra[f"{tag}_fault_row_err"] = c["fault_row_err"]
         extra[f"{tag}_bound_ms"], extra[f"{tag}_bound_by"] = bound(
             c["nbytes"], c["ops"], c["dtype"])
     rows = [row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1430,7 +1550,17 @@ def phase_attention(dev) -> list[dict]:
                       "olmoe_s32: q/k/v (1, 16, 32, 128) causal "
                       "(olmoe-1b-7b's prefill); internvl2_s1056: q (1, 48, "
                       "1056, 128) k/v (1, 8, 1056, 128) causal "
-                      "(internvl2-26b's vision prefix and 32 tokens)",
+                      "(internvl2-26b's vision prefix and 32 tokens); "
+                      "hubert_s781 / hubert_s32768: q/k/v (8, 16, 781, 80) "
+                      "/ (1, 16, 32768, 80) non-causal (hubert-xlarge's "
+                      "encoder: 781-frame crops, prefill_32k's sequence; "
+                      "hubert_s32768's plain version in blocks of 1,024 "
+                      "query rows), bf16, and the first in float32 (the "
+                      "first also against attention_ref); in bf16 each "
+                      "hubert output row within row_tol of its largest "
+                      "|output| (row_err), planted faults breaking it "
+                      "(fault_row_err: tail = the last partial key tile "
+                      "unmasked, drop_tile = a key tile left out)",
                 **extra)]
     # (B, H, Hkv, 1, S, D): a decode step of the serving executor, whose
     # lengths run past its 32-slot cache (pos + 1 >= 33)
@@ -2145,6 +2275,163 @@ def phase_vlm(dev) -> None:
     del params, cache, logits
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_audio(dev) -> dict:
+    """hubert-xlarge, the audio encoder: (a) float32 at full width and
+    AUDIO_DEPTH layers, card vs CPU, on one (1, AUDIO_S) batch of frames
+    masked at the config's ``mask_prob``: the ``encode`` logits within
+    FULL_WIDTH_TOL, the loss and every gradient within FULL_WIDTH_TOL of
+    their scale, K4 launched once a layer by the encode; (b) bf16 at full
+    depth as ``make_compiled_steps`` holds it, one encode of each (B, S) of
+    AUDIO_ENCODES through its prefill step in a ``recording()`` block (K4
+    48 launches, finite float32 logits), then its median time over a few
+    more, and the peak memory; (c) ``positions_cost``. Returns the recorded
+    encodes' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.serving.engine import make_compiled_steps
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = get_config(AUDIO_ARCH)
+    rng = np.random.default_rng(0)
+    arrays = {"frames": rng.normal(size=(1, AUDIO_S, cfg.frame_feat_dim))
+              .astype(np.float32),
+              "mask": (rng.random((1, AUDIO_S)) < cfg.mask_prob)
+              .astype(np.float32),
+              "targets": rng.integers(0, cfg.vocab, size=(1, AUDIO_S))
+              .astype(np.int32)}
+    t0 = time.perf_counter()
+    cfg32 = cfg.with_updates(dtype="float32", n_layers=AUDIO_DEPTH)
+    model = build_model(cfg32)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    runs = {}
+    for where, p in (("cuda", params), ("cpu", cpu_params)):
+        d = dev if where == "cuda" else torch.device("cpu")
+        batch = {k: torch.as_tensor(v, device=d) for k, v in arrays.items()}
+        with torch.no_grad(), kernels.recording() as launches:
+            logits = model.encode(p, batch)
+        for t in p.values():
+            t.requires_grad_(True)
+        (loss, _), grads = _value_and_grad(model, p, batch)
+        runs[where] = (logits.cpu(), float(loss),
+                       {k: g.cpu() for k, g in grads.items()}, launches)
+    (lg_d, loss_d, g_d, launches), (lg_c, loss_c, g_c, _) = \
+        runs["cuda"], runs["cpu"]
+    rel = {k: float((g_d[k] - g_c[k]).abs().max()
+                    / g_c[k].abs().max().clamp_min(1e-30)) for k in g_c}
+    worst = max(rel, key=rel.get)
+    res = {"layers": AUDIO_DEPTH, "batch": [1, AUDIO_S],
+           "masked": int(arrays["mask"].sum()),
+           "params": model.param_count(), "logit_err": max_err(lg_d, lg_c),
+           "logit_scale": float(lg_c.abs().max()),
+           "loss_card": loss_d, "loss_cpu": loss_c,
+           "loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
+           "grad_max_rel_err": rel[worst], "grad_worst": worst,
+           "encode_launches": launches, "tol": FULL_WIDTH_TOL,
+           "s": time.perf_counter() - t0}
+    log(f"[model] {AUDIO_ARCH} full width, float32, card vs CPU: "
+        f"{json.dumps(res)}")
+    if not torch.isfinite(lg_d).all() or res["logit_err"] > FULL_WIDTH_TOL \
+            or res["loss_rel_err"] > FULL_WIDTH_TOL \
+            or res["grad_max_rel_err"] > FULL_WIDTH_TOL:
+        fail(f"{AUDIO_ARCH} float32 on the card differs from the CPU: {res}")
+    if launches != {"flash_attention": AUDIO_DEPTH}:
+        fail(f"{AUDIO_ARCH}'s float32 encode launched {launches}, expected "
+             f"K4 once a layer")
+    del params, cpu_params, runs, g_d, g_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth, as make_compiled_steps holds it
+    t0 = time.perf_counter()
+    model, params, prefill_fn, _ = make_compiled_steps(cfg, seed=1,
+                                                       device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weight_gib = sum(v.numel() * v.element_size()
+                     for v in params.values()) / 2**30
+    total = torch.cuda.get_device_properties(dev).total_memory
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {"launches": {}, "encodes": []}
+    for B, S in AUDIO_ENCODES:
+        batch = {"frames": torch.randn((B, S, cfg.frame_feat_dim),
+                                       generator=gen, device=dev)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with kernels.recording() as launches:
+            logits, cache = prefill_fn(params, batch)
+            torch.cuda.synchronize()
+        if cache is not None or logits.dtype != torch.float32 \
+                or tuple(logits.shape) != (B, S, cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            fail(f"{AUDIO_ARCH} bf16 encode at {(B, S)}: logits "
+                 f"{logits.dtype} {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}, cache {cache}")
+        if launches != {"flash_attention": cfg.n_layers}:
+            fail(f"{AUDIO_ARCH}'s bf16 encode launched {launches}, expected "
+                 f"K4 once a layer")
+        reps = 5 if S < 4096 else 3
+        times = [cuda_ms(lambda: prefill_fn(params, batch), 1, warmup=0)
+                 for _ in range(reps)]
+        ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated()
+        enc = {"batch": [B, S], "median_ms": ms, "ms": times,
+               "frames_per_s": B * S / (ms / 1e3),
+               "peak_gib": peak / 2**30, "peak_fraction": peak / total,
+               "logit_max": float(logits.abs().max()), "launches": launches}
+        log(f"[model] {AUDIO_ARCH} bf16 serving weights, {cfg.n_layers} "
+            f"layers, {model.param_count():,} parameters ({weight_gib:.2f} "
+            f"GiB, set up in {build_s:.2f} s), encode {(B, S)}: "
+            f"{json.dumps(enc)}")
+        if peak >= PEAK_FRACTION * total:
+            fail(f"{AUDIO_ARCH} encode {(B, S)} peaked at "
+                 f"{peak / 2**30:.1f} GiB, over {PEAK_FRACTION:.0%} of the "
+                 f"card")
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        out["encodes"].append(enc)
+        del batch, logits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["positions"] = positions_cost(cfg, model.dtype, dev)
+    return out
+
+
+def positions_cost(cfg, dtype, dev) -> dict:
+    """What ``sinusoidal_positions``'s cache saves an encode: the host
+    clock's ms of one table made anew (numpy float64, cast, copied to the
+    card) and of one cached lookup, and the table's bytes on the card, at
+    each S of AUDIO_ENCODES."""
+    import torch
+
+    from repro_torch.modeling.layers import sinusoidal_positions
+
+    res = {}
+    for _, S in AUDIO_ENCODES:
+        ms = {}
+        for tag, fn in (("new", sinusoidal_positions.__wrapped__),
+                        ("cached", sinusoidal_positions)):
+            fn(S, cfg.d_model, dtype, dev)  # the cache's entry, a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = fn(S, cfg.d_model, dtype, dev)
+            torch.cuda.synchronize()
+            ms[f"{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+        ms["card_mib"] = table.numel() * table.element_size() / 2**20
+        res[S] = ms
+    log(f"[model] {AUDIO_ARCH} sinusoidal positions, new vs cached: "
+        f"{json.dumps(res)}")
+    return res
 
 
 # ------------------------------------------------------------------ phase 5
@@ -3020,7 +3307,7 @@ def slice_run(dev, arch, B, S, layers=None) -> dict:
     out = {"arch": arch, "layers": cfg.n_layers, "params": model.param_count(),
            "steps": TRAIN_STEPS, "batch": [B, S], "loss_chunk": cfg.loss_chunk,
            "median_step_ms": step_ms, "step_ms": [s * 1e3 for s in res.step_s],
-           "tokens_per_s": B * S / (step_ms / 1e3),
+           "tokens_per_s": B * S / (step_ms / 1e3),  # the encoder's: frames
            "peak_gib": peak / 2 ** 30, "peak_fraction": peak / total,
            "loss_first": res.losses[0], "loss_last": res.losses[-1],
            "losses": res.losses, "launches": launches,
@@ -3322,8 +3609,10 @@ def phase_train(dev, card) -> dict:
     the slices' shapes; (b) float32 steps on the card against the CPU,
     llama, mamba and Griffin; (c) the slices: llama3.2-1b and mamba2-780m
     trained at full width and depth, recurrentgemma-9b at full width and 3
-    layers; (d) determinism and restart. Returns the rows of K4b, K3b and
-    K6b and the slices' launches."""
+    layers, olmoe-1b-7b at 4 layers and hubert-xlarge at full width and
+    depth (with K4b at its non-causal head_dim-80 attention in (a) and its
+    float32 step in (b)); (d) determinism and restart. Returns the rows of
+    K4b, K3b and K6b and the slices' launches."""
     import gc
 
     import torch
@@ -3342,7 +3631,13 @@ def phase_train(dev, card) -> dict:
               "griffin_s4096_f32": k4b_case(GRIFFIN_ATTN, f32, dev, True,
                                             WINDOW, 2),
               "olmoe_s2048": k4b_case(MOE_ATTN, bf16, dev, True, 0, 10,
-                                      ("delta", "gqa"))}
+                                      ("delta", "gqa")),
+              # hubert-xlarge's: non-causal at head_dim 80, 781 frames (13
+              # query tiles, the last partial)
+              "hubert_s781": k4b_case(AUDIO_ATTN, bf16, dev, False, 0, 10,
+                                      ("delta", "gqa")),
+              "hubert_s781_f32": k4b_case(AUDIO_ATTN, f32, dev, False, 0,
+                                          2)}
     free()
     k3b = k3b_case(dev)
     free()
@@ -3364,6 +3659,9 @@ def phase_train(dev, card) -> dict:
     steps.append(train_step_check(dev, MOE_ARCH, STEP_LAYERS, STEP_B,
                                   STEP_S))
     free()
+    steps.append(train_step_check(dev, AUDIO_ARCH, AUDIO_DEPTH, STEP_B,
+                                  AUDIO_S))
+    free()
     slices = [slice_run(dev, ARCH, TRAIN_B, TRAIN_S)]
     free()
     slices.append(slice_run(dev, SSM_ARCH, SSM_TRAIN_B, SSM_TRAIN_S))
@@ -3374,8 +3672,10 @@ def phase_train(dev, card) -> dict:
     slices.append(slice_run(dev, MOE_ARCH, MOE_TRAIN_B, MOE_TRAIN_S,
                             MOE_TRAIN_LAYERS))
     free()
+    slices.append(slice_run(dev, AUDIO_ARCH, AUDIO_TRAIN_B, AUDIO_TRAIN_S))
+    free()
     rs = restart_check(dev)
-    sl, ssm, hyb, olmoe = slices
+    sl, ssm, hyb, olmoe, hubert = slices
     extra = {key: llama[key] for key in
              ("row_err", "fault_row_err", "k4_ms", "lse_err", "nsplit",
               "tflops", "run_tflops")}
@@ -3399,6 +3699,11 @@ def phase_train(dev, card) -> dict:
     extra["olmoe_train_step_k4b_ms"] = {
         k: v for k, v in olmoe["split_ms"]["bwd_kernels"].items()
         if "fa_bwd" in k}
+    extra["hubert_train_launches_per_step"] = \
+        hubert["per_step"]["flash_attention_bwd"]
+    extra["hubert_train_step_k4b_ms"] = {
+        k: v for k, v in hubert["split_ms"]["bwd_kernels"].items()
+        if "fa_bwd" in k}
     rows = [row("flash_attention_bwd",
                 "src/repro_torch/csrc/flash_attention_bwd.cu",
                 "none; the reference differentiates its XLA chunked "
@@ -3411,7 +3716,9 @@ def phase_train(dev, card) -> dict:
                       "(1, 1, 4096, 256) causal, window 2048 "
                       "(recurrentgemma-9b), bf16 and float32; olmoe_s2048: "
                       "q/k/v (2, 16, 2048, 128) causal bf16 (olmoe-1b-7b's "
-                      "training step)",
+                      "training step); hubert_s781: q/k/v (8, 16, 781, 80) "
+                      "non-causal (hubert-xlarge's training step), bf16 and "
+                      "float32",
                 **extra)]
     rows.append(row(
         "linear_scan_bwd", "src/repro_torch/csrc/linear_scan.cu",

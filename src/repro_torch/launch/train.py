@@ -15,6 +15,13 @@ Examples:
         --smoke --device cpu --steps 60 --ckpt-dir ckpt --fail-at 25
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
         --layers 4 --batch 2 --seq 2048 --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --batch 8 --seq 781 --steps 10
+
+(``--arch hubert-xlarge`` trains the audio encoder by masked prediction on
+the synthetic frame batches of ``training.data.AudioPipeline``; ``--seq``
+counts frames: 781 is a 250,000-sample crop at 16 kHz through the 320x
+frontend.)
 """
 
 from __future__ import annotations

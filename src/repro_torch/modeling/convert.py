@@ -5,8 +5,11 @@ goes through ``build_model(cfg).param_specs()``, so it covers every family
 the port has: the decoder ``LM`` (dense, MoE with its ``moe/`` and
 ``shared_mlp/`` parameters and the grouped ``layers_dense/`` and
 ``layers_moe/`` stacks, VLM with ``vision_proj/w``), the SSM family's
-``MambaLM`` and the hybrid family's ``GriffinLM`` (its stacked
-``rec_layers/`` and ``attn_layers/`` parameters carry over by name)."""
+``MambaLM``, the hybrid family's ``GriffinLM`` (its stacked
+``rec_layers/`` and ``attn_layers/`` parameters carry over by name) and
+the audio family's ``AudioEncoder`` (``frontend/w``, ``frontend/b``, the
+top-level ``mask_emb``, the stacked ``layers/``, ``ln_f`` and
+``head/w``)."""
 
 from __future__ import annotations
 

@@ -226,6 +226,9 @@ class LM(nn.Module):
     """The decoder. An ``nn.Module`` without registered parameters: every
     method takes the flat parameter dict, as the reference does."""
 
+    # the batch key of the loss's position mask
+    loss_mask_key = "loss_mask"
+
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
@@ -305,9 +308,13 @@ class LM(nn.Module):
     def serving_cast(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """A parameter as a server holds it: every matrix cast to
         ``cfg.dtype`` (as each use would cast it); norm parameters and the
-        MoE router's weights kept in float32 (they are used in float32)."""
+        MoE router's weights kept in float32 (they are used in float32). A
+        top-level parameter, whose path has no ``/`` (the encoder's
+        ``mask_emb``), belongs to no norm: it is cast to ``cfg.dtype``, as
+        its use casts it."""
         parts = path.split("/")
-        if parts[-2].startswith("ln_") or parts[-3:-1] == ["moe", "router"]:
+        owner = parts[-2] if len(parts) > 1 else ""
+        if owner.startswith("ln_") or parts[-3:-1] == ["moe", "router"]:
             return t
         return t.to(self.dtype)
 
@@ -475,13 +482,14 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- loss
     def _xent(self, params, h, batch):
-        """Mean masked cross-entropy of ``h`` against ``batch["targets"]``
-        (the reference's chunked loss, ``cfg.loss_chunk``/``loss_impl``/
-        ``logits_softcap``)."""
+        """Mean cross-entropy of ``h`` against ``batch["targets"]`` over the
+        positions ``batch[self.loss_mask_key]`` marks (every position when
+        the batch has none): the reference's chunked loss,
+        ``cfg.loss_chunk``/``loss_impl``/``logits_softcap``."""
         from repro_torch.modeling.losses import chunked_softmax_xent
 
         cfg = self.cfg
-        mask = batch.get("loss_mask")
+        mask = batch.get(self.loss_mask_key)
         if mask is None:
             mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
                               device=h.device)

@@ -1,27 +1,24 @@
 """Model registry: ArchConfig.family -> model class.
 
-The decoder families (dense, MoE and VLM, all ``LM``), the SSM (Mamba-2)
-and hybrid (Griffin) families are ported; the audio encoder raises until
-its slice of the port (``ROADMAP.md``).
+Every family of the reference is ported: the decoder families (dense, MoE
+and VLM, all ``LM``), the SSM (Mamba-2) and hybrid (Griffin) families and
+the audio encoder (HuBERT).
 """
 
 from __future__ import annotations
 
+from repro_torch.modeling.encoder import AudioEncoder
 from repro_torch.modeling.griffin import GriffinLM
 from repro_torch.modeling.lm import LM
 from repro_torch.modeling.mamba import MambaLM
 
 FAMILIES = {"dense": LM, "moe": LM, "vlm": LM, "ssm": MambaLM,
-            "hybrid": GriffinLM}
-LATER = {"audio": "the audio-encoder slice"}
+            "hybrid": GriffinLM, "audio": AudioEncoder}
 
 
 def build_model(cfg):
     cls = FAMILIES.get(cfg.family)
-    if cls is not None:
-        return cls(cfg)
-    if cfg.family in LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
-            f"comes with {LATER[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r} for arch {cfg.name!r}")
+    if cls is None:
+        raise ValueError(f"unknown family {cfg.family!r} for arch "
+                         f"{cfg.name!r}")
+    return cls(cfg)

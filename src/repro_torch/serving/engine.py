@@ -7,7 +7,12 @@ The port of ``repro.serving.engine``. ``make_prefill_step`` /
     decode_step(params, cache, batch)  -> (logits (B, V) float32, cache)
 
 (the decode step updates ``cache`` in place, see ``modeling/lm.py`` and
-``modeling/mamba.py``).
+``modeling/mamba.py``). The audio encoder (``modeling/encoder.py``) is
+served by the same step functions: its prefill step takes a
+``{"frames": ...}`` batch (``"mask"`` optional) and returns (frame logits
+(B, S, V) float32, None), and its decode step raises, as the reference's
+does; it has no CUDA graph (the reference compiles none for it), and the
+live executors serve the token families only.
 ``make_compiled_steps`` is the executor-facing entry: model, parameters drawn
 on the executor's device from its seed, and the two steps in one call. Where
 the reference compiles both steps with ``jax.jit``, an executor on the card

@@ -79,7 +79,10 @@ class FailureInjector:
 def _value_and_grad(model, params: dict, batch: dict):
     keys = sorted(params)
     loss, metrics = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, [params[k] for k in keys])
+    # a parameter the loss does not read gets a zero gradient, as under
+    # jax.grad (the encoder's mask_emb on a batch without a mask)
+    grads = torch.autograd.grad(loss, [params[k] for k in keys],
+                                materialize_grads=True)
     return (loss.detach(), {k: m.detach() for k, m in metrics.items()}), \
         dict(zip(keys, grads))
 

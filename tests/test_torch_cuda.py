@@ -440,7 +440,8 @@ K4_CASES = [(1, 32, 32, 8, 64, True, 0), (2, 100, 4, 2, 64, True, 24),
             (2, 64, 4, 2, 32, False, 0), (1, 70, 2, 1, 256, True, 0),
             (1, 50, 6, 3, 80, False, 17), (1, 200, 8, 2, 80, True, 0),
             (2, 150, 8, 2, 256, True, 64), (1, 40, 4, 2, 20, True, 0),
-            (2, 9, 2, 1, 1, False, 0)]
+            (2, 9, 2, 1, 1, False, 0),
+            (8, 781, 16, 16, 80, False, 0)]  # hubert-xlarge's encoder
 
 
 @pytest.mark.cuda
@@ -449,7 +450,7 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
     """K4 against its plain version on the card: causal, windowed and
     bidirectional, MQA/GQA/MHA, ragged key tiles, head dims 1 to 256 (20 and
     1 are not multiples of 8: the bf16 kernel stages them element by
-    element)."""
+    element); the long bidirectional bf16 case also row by row."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bhsd,
         flash_attention_plain,
@@ -482,6 +483,13 @@ def test_flash_attention_on_card(cuda_device, rng, dtype):
                 f"CPU plain version "
                 f"{float((want.double() - exact).abs().max())}")
         assert err <= ATTN_TOL[dtype], (B, S, H, Hkv, D, causal, window, err)
+        if dtype == torch.bfloat16 and not causal and S >= 512:
+            # a long bidirectional row's outputs are small (~sqrt(e / S)),
+            # so the absolute limit is loose there: each row is also held
+            # within DEC_ROW_TOL of its largest |output|, as chip_smoke.py
+            # holds the encoder's rows
+            rel = SMOKE.k4b_row_err((got.cpu(),), (want,))
+            assert rel <= DEC_ROW_TOL, (B, S, H, Hkv, D, rel)
         # the (B, S, H, D) layout through strided views
         qs, ks, vs = (t.transpose(1, 2).contiguous().to(cuda_device)
                       for t in (q, k, v))
@@ -1803,6 +1811,7 @@ K4B_CASES = [  # (B, H, Hkv, S, D, causal, window)
     (1, 4, 2, 1000, 64, True, 0),        # ragged: S not a tile multiple
     (2, 6, 3, 77, 80, True, 24), (1, 4, 1, 45, 16, False, 0),
     (1, 2, 2, 33, 1, False, 7), (1, 4, 4, 130, 256, True, 40),
+    (8, 16, 16, 781, 80, False, 0),      # hubert-xlarge's: 13 query tiles
 ]
 
 
@@ -1840,6 +1849,63 @@ def test_flash_attention_bwd_on_card(cuda_device, case, dtype):
         assert SMOKE.k4b_f32_err(got, want) <= SMOKE.K4B_F32_TOL, case
     else:
         assert SMOKE.k4b_row_err(got, want) <= SMOKE.K4B_ROW_TOL, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim80_canary_on_card(cuda_device, dtype):
+    """K4 and K4b at hubert-xlarge's attention ((8, 16, 781, 80), non-
+    causal), which both run through their 128-wide instantiation: outputs
+    written through the first 80 columns of each head of NaN-filled
+    (B, S, H, 128) buffers leave the other 48 columns NaN and agree with
+    the plain versions (K4b's by ``chip_smoke.py``'s limits); K4's output
+    in the model's exact layout (the (B, S, H, 80) storage, strides
+    (S*1280, 80, 1280, 1) as (B, H, S, D)) leaves a NaN tail past the
+    view untouched and has the same bits."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd,
+        flash_attention_bwd_bhsd,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    B, S, H, D = 8, 781, 16, 80
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=cuda_device)
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+
+    def canvas():
+        buf = torch.full((B, S, H, 128), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        return buf, buf[..., :D].transpose(1, 2)
+
+    obuf, out = canvas()
+    lse = torch.empty((B, H, S), device=cuda_device)
+    flash_attention_bhsd(q, k, v, causal=False, out=out, lse=lse)
+    n = B * S * H * D
+    flat = torch.full((n + 4096,), float("nan"), dtype=dtype,
+                      device=cuda_device)
+    model_out = flat[:n].view(B, S, H, D).transpose(1, 2)
+    assert model_out.stride() == (S * H * D, D, H * D, 1)
+    flash_attention_bhsd(q, k, v, causal=False, out=model_out)
+    grads = [canvas() for _ in range(3)]
+    got = flash_attention_bwd_bhsd(q, k, v, out, do, causal=False, lse=lse,
+                                   dq=grads[0][1], dk=grads[1][1],
+                                   dv=grads[2][1])
+    want = flash_attention_plain(q, k, v, causal=False)
+    want_bwd = flash_attention_bwd_plain(q, k, v, out, do, causal=False)
+    torch.cuda.synchronize()
+    for buf, _ in [(obuf, out)] + grads:
+        assert torch.isnan(buf[..., D:]).all()
+        assert not torch.isnan(buf[..., :D]).any()
+    assert torch.isnan(flat[n:]).all()
+    assert torch.equal(model_out, out)
+    assert float((out.float() - want.float()).abs().max()) <= \
+        ATTN_TOL[dtype]
+    if dtype == torch.float32:
+        assert SMOKE.k4b_f32_err(got, want_bwd) <= SMOKE.K4B_F32_TOL
+    else:
+        assert SMOKE.k4b_row_err(got, want_bwd) <= SMOKE.K4B_ROW_TOL
 
 
 @pytest.mark.cuda
@@ -2329,6 +2395,52 @@ def test_scan_float32_train_step_card_matches_cpu(cuda_device, arch):
         k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()})
     (loss_c, _), g_c = _value_and_grad(
         model, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    for k in g_c:
+        err = float((g_d[k].cpu() - g_c[k]).abs().max())
+        assert err <= 1e-4 * float(g_c[k].abs().max().clamp_min(1e-30)), k
+
+
+# ------------------------------------------------------- the audio encoder
+@pytest.mark.cuda
+def test_encoder_float32_forward_and_train_step_card_matches_cpu(
+        cuda_device):
+    """The smoke hubert-xlarge at head_dim 80 (2 heads, the full model's
+    head width), float32, remat "full", on the card and on the CPU from the
+    same parameters and a masked frames batch: the encode logits within
+    1e-4 (K4 once a layer), then one step's loss and every gradient within
+    1e-4 of its scale, with K4 twice a layer and K4b once."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.modeling.registry import build_model
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.train_loop import _value_and_grad
+
+    cfg = smoke_config("hubert-xlarge").with_updates(
+        remat="full", head_dim=80, n_heads=2, n_kv_heads=2)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = {k: t.to(cuda_device) for k, t in cpu.items()}
+    batch = make_pipeline(cfg, seq_len=100, global_batch=2,
+                          seed=0).batch(0)
+    assert batch["mask"].any()
+    b_d = {k: torch.as_tensor(v, device=cuda_device)
+           for k, v in batch.items()}
+    b_c = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with torch.no_grad(), kernels.recording() as tally:
+        got = model.encode(card, b_d)
+        torch.cuda.synchronize()
+    assert tally == {"flash_attention": cfg.n_layers}
+    with torch.no_grad():
+        want = model.encode(cpu, b_c)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    for p in list(card.values()) + list(cpu.values()):
+        p.requires_grad_(True)
+    with kernels.recording() as tally:
+        (loss_d, _), g_d = _value_and_grad(model, card, b_d)
+        torch.cuda.synchronize()
+    assert tally == {"flash_attention": 2 * cfg.n_layers,
+                     "flash_attention_bwd": cfg.n_layers}
+    (loss_c, _), g_c = _value_and_grad(model, cpu, b_c)
     assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
     for k in g_c:
         err = float((g_d[k].cpu() - g_c[k]).abs().max())

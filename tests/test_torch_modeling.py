@@ -372,10 +372,30 @@ def test_converter_rejects_mismatched_params():
         lm_params_from_numpy(cfg, arrays)
 
 
-@pytest.mark.parametrize("name", ["hubert-xlarge"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(smoke_config(name))
+@pytest.mark.parametrize("size", ["full", "smoke"])
+def test_audio_family_builds_encoder(size):
+    """The audio family is ported: ``build_model`` returns the port's
+    ``AudioEncoder`` for hubert-xlarge (its parity with the reference is
+    held in ``tests/test_torch_encoder.py``)."""
+    from repro_torch.modeling.encoder import AudioEncoder
+
+    cfg = (get_config if size == "full" else smoke_config)("hubert-xlarge")
+    assert type(build_model(cfg)) is AudioEncoder
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_family_builds(name):
+    """No family of the registry is refused any more, and each builds the
+    reference's parameters: every spec's path, shape, init and scale, and
+    the parameter count, at full and smoke size."""
+    for cfg, jcfg in ((get_config(name), jax_get_config(name)),
+                      (smoke_config(name), jax_smoke_config(name))):
+        model, jmodel = build_model(cfg), jax_build_model(jcfg)
+        assert {k: (v.shape, v.init, v.scale)
+                for k, v in model.param_specs().items()} == \
+            {k: (v.shape, v.init, v.scale)
+             for k, v in jmodel.param_specs().items()}
+        assert model.param_count() == jmodel.param_count() > 0
 
 
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "internvl2-26b",
