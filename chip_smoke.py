@@ -61,9 +61,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at hubert-xlarge's encoder attention, non-causal at head_dim 80 (q/k/v
    (8, 16, 781, 80) in bf16 and float32, also against ``attention_ref``,
    and (1, 16, 32768, 80) in bf16, whose plain version runs in blocks of
-   1,024 query rows; in bf16 each output row also within 2**-6 of its
-   largest |output|, which planted faults, the last partial key tile left
-   unmasked and a key tile dropped, must exceed), and
+   1,024 query rows), and
    flash decode (K5) at llama's decode shape (k/v (1, 8, 32, 64), length
    33), at B=4, S=4096 with ragged lengths and one length above S, and at
    recurrentgemma-9b's (head_dim 256, one KV head: its 32-slot serving
@@ -71,11 +69,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decoder's head_dim 128 (K4 at olmoe-1b-7b's prefill, q/k/v (1, 16, 32,
    128), and at internvl2-26b's, q (1, 48, 1056, 128) k/v (1, 8, 1056,
    128); K5 at olmoe's decode step, k/v (1, 16, 32, 128), length 33),
-   within 5e-5 in
-   float32 and 3e-2 in bf16 (the Griffin and head_dim-128 shapes also
+   and at llama3.2-1b's launch cells (K4 at prefill_32k's q/k/v (1, 32 /
+   8, 32768, 64) causal in bf16, its plain version in blocks of 1,024
+   query rows over the keys they see; K5 at decode_32k's 16 sequences
+   over full 32,768-slot caches, k/v (16, 8, 32768, 64)), within 5e-5 in
+   float32 and 3e-2 in bf16, K4 in bf16 also each output row within 2**-6
+   of its largest |output|, which planted faults must exceed (hubert's:
+   the last partial key tile left unmasked, a key tile dropped; llama's
+   prefill_32k: a key tile below the diagonal dropped, the last query
+   tile's diagonal tile unmasked) (the Griffin and head_dim-128 shapes also
    against the literal oracles ``attention_ref`` and
-   ``decode_attention_ref`` within the same limits), in bf16 also each (batch, head) row within
-   2**-6 of its largest |output| (``row_err``; two planted faults, a dropped
+   ``decode_attention_ref`` within the same limits), K5 in bf16 also
+   each (batch, head) row within 2**-6 of its largest |output| (``row_err``; two planted faults, a dropped
    split and one masked slot let through, must exceed that limit:
    ``fault_row_err``), its row recording the split count at each
    shape (``nsplit``, ``chunk``); the SSD scan (K6) in bf16 and float32 on the
@@ -218,7 +223,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one step's device time by kind of kernel, K4b's by kernel); and on the
    ``examples/train_100m_torch.py`` configuration two runs from one seed
    (equal losses) and a run killed at step 6 and restarted from its
-   checkpoint (within rtol 1e-5 of the uninterrupted run). Beside K4b:
+   checkpoint (within rtol 1e-5 of the uninterrupted run), whose last
+   checkpoint ``elastic_restore`` places on the card's host mesh (each
+   parameter and moment a DTensor with its logical axes' placements, its
+   local tensor bit-equal to ``restore_latest``'s). Beside K4b:
    K3b (``linear_scan_bwd``) against its plain version at
    recurrentgemma-9b's training recurrence ((1, 4096, 4096) float32) within
    5e-5 of max(1, |grad|), two planted faults (the final state's seed
@@ -247,13 +255,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    blocks around each step (the float32 steps, the slices' 10 steps and
    each profiled step), which see the backward kernels and the remat's
    forward kernels though autograd launches them on its own device thread;
+7b. the launch layer (``launch``): llama3.2-1b's train_4k, prefill_32k
+   and decode_32k cells built by ``launch.steps.build_cell`` on the host
+   mesh (``make_host_mesh``: the card as a (1, 1) ("data", "model") mesh
+   on a one-process group) at full width, their peaks reckoned by
+   ``analyze_cell`` (train_4k would drop to batch 1 past 90% of the
+   card), materialized at global batches 2, 1 and 16 (cut from 256, 32
+   and 128; printed) and each run once with no context to warm it, then
+   5 times under ``sharding_ctx(mesh, cell.rules)`` and 5 times with no
+   context, in turn, on arguments materialized anew each run: every
+   run's outputs bit-equal to the first's (the train cell's loss and
+   updated parameters, the serving cells' logits and caches), K4 32 and
+   K4b 16, K4 16, K5 16 launches a run; a line per cell with its median
+   step ms on CUDA events and every run's, beside the card,
+   ``analyze_cell``'s FLOPs at that batch and the achieved TFLOP/s at the
+   median; meanwhile ``python -m
+   repro_torch.launch.dryrun --arch llama3.2-1b --mesh both`` runs in a
+   subprocess on the CPU (256- and 512-device fake meshes), which must
+   exit 0, its rows printed;
 8. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
    line (K1-K6, K3b, K4b, K6b, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's ``launches`` are its wrapper's count over its main paths' runs
-(the placement stream, the encoder's two recorded encodes, the live serves
-and the training slices): the calls that launched it (or
+(the placement stream, the encoder's two recorded encodes, the live serves,
+the training slices and the launch cells): the calls that launched it (or
 recorded it into a CUDA graph at a capture). The launches that prefill and
 decode graph replays run are counted apart, as ``graph_replayed``, from the
 graphs' own tally (``serving.engine.replayed_launches``).
@@ -432,6 +458,10 @@ PEAK_FRACTION = 0.9
 AUDIO_ARCH, AUDIO_DEPTH, AUDIO_S = "hubert-xlarge", 2, 256
 AUDIO_ENCODES = ((8, 781), (1, 32_768))
 AUDIO_ATTN, AUDIO_LONG_ATTN = (8, 16, 16, 781, 80), (1, 16, 16, 32_768, 80)
+# llama3.2-1b's prefill_32k attention (B, H, Hkv, S, D) at batch 1, and its
+# decode_32k step (B, H, Hkv, 1, S, D) at batch 16
+LLAMA_LONG_ATTN = (1, 32, 8, 32_768, 64)
+LLAMA_DECODE_32K = (16, 32, 8, 1, 32_768, 64)
 AUDIO_TRAIN_B, AUDIO_TRAIN_S = 8, 781
 
 DECISION_COLS = ("predicted_cold", "feasible")
@@ -500,11 +530,12 @@ def main() -> int:
     repeat = timed("k4 f32 repeat", fa_f32_repeat, dev)
     trained = timed("train", phase_train, dev, card)
     rows += trained["rows"]
+    launched = timed("launch", phase_launch, dev, card)
     # each kernel's launches over its main paths' runs: the placement
     # stream's, the encoder's encodes, every live serve's and the training
     # slices' (counts zeroed before each)
     launches = dict(serve["launches"])
-    for path in (audio, trained):
+    for path in (audio, trained, launched):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     replayed = {}
@@ -780,15 +811,22 @@ def max_err(a, b) -> float:
 
 
 def bits_equal(a, b) -> bool:
-    """Bit-identical float tensors, on any devices (so -0.0 differs from
-    +0.0 and NaN equals a NaN of the same bits)."""
+    """Bit-identical tensors, on any devices (float ones compared as their
+    bits, so -0.0 differs from +0.0 and NaN equals a NaN of the same bits),
+    on ``a``'s device, 2^28 elements at a time (``torch.equal`` holds a
+    bool tensor of its inputs' size)."""
     import torch
 
-    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = a.detach().contiguous(), b.detach().to(a.device).contiguous()
     ints = {torch.float64: torch.int64, torch.float32: torch.int32,
             torch.bfloat16: torch.int16}
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+    if a.dtype in ints:
+        a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
+    a, b, n = a.reshape(-1), b.reshape(-1), 1 << 28
+    return all(torch.equal(a[i:i + n], b[i:i + n])
+               for i in range(0, a.numel(), n))
 
 
 def search_steps(n: int) -> int:
@@ -1231,14 +1269,18 @@ def fa_case(shape, dtype, dev, causal, window, reps, ref=False,
             plain_rows=0, faults=()):
     """K4 vs its plain version (and SDPA's time) at one shape; with ``ref``
     also vs the literal oracle ``attention_ref`` (in the model's layout).
-    ``plain_rows`` (non-causal, unwindowed shapes only) runs the plain
-    version over that many query rows at a time, each block against every
-    key (the rows are independent there: the same values), where its full
-    (Sq, Skv) float32 score matrix would not fit on the card. With
-    ``faults`` (bf16, non-causal) also each (batch, head, query) row of the
-    output within DEC_ROW_TOL of its largest |output| (``row_err``), and
-    the outputs of ``fa_planted``'s faults, computed plainly, must break
-    that limit (``fault_row_err``)."""
+    ``plain_rows`` (unwindowed shapes only) runs the plain version over
+    that many query rows at a time, each block against every key, or with
+    ``causal`` against the keys up to its last row (``causal_rows_plain``;
+    the rows are independent: the same values), where its full (Sq, Skv)
+    float32 score matrix would not fit on the card. In bf16 each (batch,
+    head, query) row of the output must also lie within DEC_ROW_TOL of its
+    largest |output| (``row_err``): at long causal shapes a typical output
+    is smaller than ATTN_TOL. The outputs of the planted ``faults``
+    (unwindowed bf16; ``fa_planted``'s for non-causal shapes,
+    ``causal_rows_plain``'s for causal ones, which need ``plain_rows``),
+    computed plainly, must break that limit (``fault_row_err``; their
+    absolute errors beside it, ``fault_err``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1252,16 +1294,22 @@ def fa_case(shape, dtype, dev, causal, window, reps, ref=False,
     q, k, v = attn_inputs(shape, dtype, dev, seed=shape[4] + window)
     B, H, Hkv, Sq, Skv, D = shape
     kw = dict(causal=causal, window=window)
-    if plain_rows and (causal or window):
+    if plain_rows and (window or (causal and Sq != Skv)):
         fail("fa_case: the plain version runs in query blocks only without "
-             "a mask")
+             "a window, and causal ones only on square shapes")
 
-    if faults and (causal or window or dtype != torch.bfloat16):
-        fail("fa_case: planted faults are for bf16 non-causal shapes")
+    if faults and (window or dtype != torch.bfloat16
+                   or (causal and not plain_rows)):
+        fail("fa_case: planted faults are for unwindowed bf16 shapes, "
+             "causal ones with plain_rows")
 
-    def plain(k=k, v=v):
+    def plain(k=k, v=v, fault=None):
         if not plain_rows:
             return flash_attention_plain(q, k, v, **kw)
+        if causal:
+            return torch.cat([causal_rows_plain(q, k, v, i, plain_rows,
+                                                fault)
+                              for i in range(0, Sq, plain_rows)], dim=2)
         return torch.cat([flash_attention_plain(q[:, :, i:i + plain_rows],
                                                 k, v, **kw)
                           for i in range(0, Sq, plain_rows)], dim=2)
@@ -1274,16 +1322,23 @@ def fa_case(shape, dtype, dev, causal, window, reps, ref=False,
     if err > ATTN_TOL[name]:
         fail(f"K4 {shape} {name} causal={causal} window={window} differs "
              f"from its plain version by {err}")
-    row_err, fault_row_err = None, {}
-    if faults:
+    row_err, fault_row_err, fault_err = None, {}, {}
+    if dtype == torch.bfloat16:
         row_err = k4b_row_err((got,), (want,))
         if row_err > DEC_ROW_TOL:
-            fail(f"K4 {shape} bf16: a row differs from the plain version by "
-                 f"{row_err} of its largest |output| (limit {DEC_ROW_TOL})")
-        fault_row_err = {f: k4b_row_err((plain(*fa_planted(k, v, f)),),
-                                        (want,)) for f in faults}
-        log(f"[k4] {shape} bf16 non-causal: row error {row_err}, planted "
-            f"faults {json.dumps(fault_row_err)}, limit {DEC_ROW_TOL}")
+            fail(f"K4 {shape} bf16 causal={causal} window={window}: a row "
+                 f"differs from the plain version by {row_err} of its "
+                 f"largest |output| (limit {DEC_ROW_TOL})")
+    if faults:
+        for f in faults:
+            bad = plain(fault=f) if causal else plain(*fa_planted(k, v, f))
+            fault_row_err[f] = k4b_row_err((bad,), (want,))
+            fault_err[f] = max_err(bad, want)
+            del bad
+        log(f"[k4] {shape} bf16 causal={causal}: row error {row_err}, "
+            f"planted faults {json.dumps(fault_row_err)}, limit "
+            f"{DEC_ROW_TOL}; their absolute errors {json.dumps(fault_err)}, "
+            f"limit {ATTN_TOL[name]}")
         missed = [f for f, e in fault_row_err.items() if e <= DEC_ROW_TOL]
         if missed:
             fail(f"K4 {shape}: the row limit {DEC_ROW_TOL} misses planted "
@@ -1316,9 +1371,44 @@ def fa_case(shape, dtype, dev, causal, window, reps, ref=False,
         plain_ms=cuda_ms(plain, 1, warmup=0) if plain_rows
         else graph_ms(plain, max(reps // 10, 2)),
         library_ms=graph_ms(sdpa, reps), err=err, ref_err=ref_err,
-        row_err=row_err, fault_row_err=fault_row_err,
+        row_err=row_err, fault_row_err=fault_row_err, fault_err=fault_err,
         nbytes=esz * (2 * q.numel() + k.numel() + v.numel()),
         ops=4.0 * B * H * pairs * D, dtype=name)
+
+
+def causal_rows_plain(q, k, v, i, rows, fault=None):
+    """``flash_attention_plain``'s causal output for the query rows i to
+    i + rows - 1 of a square shape, over the keys 0 to i + rows - 1 they
+    can see: the same float32 formulas, its mask offset by i. ``fault``
+    plants one in the mask, as a K4 with that fault would compute:
+    ``drop_tile`` leaves out the second key tile (keys K4_TK to
+    2 K4_TK - 1) below the diagonal; ``late_diag`` lets each row of the
+    last query tile see the whole of that tile, its future keys too."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import NEG_INF
+
+    B, H, _, D = q.shape
+    Hkv = k.shape[1]
+    n = min(rows, q.shape[2] - i)
+    qb = q[:, :, i:i + n].float().reshape(B, Hkv, H // Hkv, n, D)
+    kb, vb = k[:, :, :i + n].float(), v[:, :, :i + n].float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qb, kb) * (1.0 / (D ** 0.5))
+    kpos = torch.arange(i + n, device=q.device)[None, :]
+    qpos = (i + torch.arange(n, device=q.device))[:, None]
+    mask = kpos <= qpos
+    if fault == "drop_tile":
+        mask &= (kpos < K4_TK) | (kpos >= 2 * K4_TK)
+    elif fault == "late_diag":
+        last = q.shape[2] - K4_TK
+        mask |= (qpos >= last) & (kpos >= last)
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, vb) \
+        / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, H, n, D).to(q.dtype)
 
 
 def square(shape):
@@ -1492,9 +1582,10 @@ def phase_attention(dev) -> list[dict]:
     extra = {f"{tag}_{key}": c[key] for tag, c in
              (("f32", fa32), ("s2048", fab), ("s2048_w256", faw))
              for key in ("ms", "plain_ms", "library_ms", "err")}
-    extra["eager_ms"] = fa["eager_ms"]
+    extra["eager_ms"], extra["row_err"] = fa["eager_ms"], fa["row_err"]
     for tag, c in (("s2048", fab), ("s2048_w256", faw)):
         extra[f"{tag}_bound_ms"] = bound(c["nbytes"], c["ops"], c["dtype"])[0]
+        extra[f"{tag}_row_err"] = c["row_err"]
     # recurrentgemma-9b's local attention (head_dim 256, MQA, window 2048):
     # its serving prefill, and a 4,096-token prompt past the window
     g32 = (1, 16, 1, PROMPT_LEN, PROMPT_LEN, 256)
@@ -1527,7 +1618,15 @@ def phase_attention(dev) -> list[dict]:
                                           False, 0, 5, ref=True),
                "hubert_s32768": fa_case(square(AUDIO_LONG_ATTN), bf16, dev,
                                         False, 0, 2, plain_rows=1024,
-                                        faults=("drop_tile",))}
+                                        faults=("drop_tile",)),
+               # llama3.2-1b's prefill_32k cell (the launch phase): one
+               # 32,768-token prompt, causal (the plain version in blocks of
+               # 1,024 query rows over the keys they see), with planted
+               # faults: a key tile below the diagonal dropped, and the
+               # last query tile's diagonal tile unmasked
+               "llama_s32768": fa_case(square(LLAMA_LONG_ATTN), bf16, dev,
+                                       True, 0, 5, plain_rows=1024,
+                                       faults=("drop_tile", "late_diag"))}
     extra["row_tol"] = DEC_ROW_TOL
     for tag, c in griffin.items():
         extra.update({f"{tag}_{key}": c[key] for key in
@@ -1535,7 +1634,9 @@ def phase_attention(dev) -> list[dict]:
                        "ref_err")})
         if c["row_err"] is not None:
             extra[f"{tag}_row_err"] = c["row_err"]
+        if c["fault_row_err"]:
             extra[f"{tag}_fault_row_err"] = c["fault_row_err"]
+            extra[f"{tag}_fault_err"] = c["fault_err"]
         extra[f"{tag}_bound_ms"], extra[f"{tag}_bound_by"] = bound(
             c["nbytes"], c["ops"], c["dtype"])
     rows = [row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1556,11 +1657,17 @@ def phase_attention(dev) -> list[dict]:
                       "encoder: 781-frame crops, prefill_32k's sequence; "
                       "hubert_s32768's plain version in blocks of 1,024 "
                       "query rows), bf16, and the first in float32 (the "
-                      "first also against attention_ref); in bf16 each "
-                      "hubert output row within row_tol of its largest "
+                      "first also against attention_ref); "
+                      "llama_s32768: q (1, 32, 32768, 64) k/v (1, 8, 32768, "
+                      "64) causal bf16 (llama3.2-1b's prefill_32k cell), the "
+                      "plain version in blocks of 1,024 query rows; in bf16 "
+                      "each output row within row_tol of its largest "
                       "|output| (row_err), planted faults breaking it "
-                      "(fault_row_err: tail = the last partial key tile "
-                      "unmasked, drop_tile = a key tile left out)",
+                      "(fault_row_err, their absolute errors fault_err: "
+                      "tail = the last partial key tile unmasked, drop_tile "
+                      "= a key tile left out, the second, below the "
+                      "diagonal where causal, late_diag = the last query "
+                      "tile's diagonal tile unmasked)",
                 **extra)]
     # (B, H, Hkv, 1, S, D): a decode step of the serving executor, whose
     # lengths run past its 32-slot cache (pos + 1 >= 33)
@@ -1597,7 +1704,12 @@ def phase_attention(dev) -> list[dict]:
                # olmoe-1b-7b's decode step: 16 heads on 16 KV heads at
                # head_dim 128, past its 32-slot serving cache (length 33)
                "olmoe_s32": fd_case((1, 16, 16, 1, PROMPT_LEN, 128), bf16,
-                                    dev, [PROMPT_LEN + 1], 200, ref=True)}
+                                    dev, [PROMPT_LEN + 1], 200, ref=True),
+               # llama3.2-1b's decode_32k cell (the launch phase): 16
+               # sequences over full 32,768-slot caches
+               "llama_b16_s32768": fd_case(LLAMA_DECODE_32K, bf16, dev,
+                                           [LLAMA_DECODE_32K[4]]
+                                           * LLAMA_DECODE_32K[0], 20)}
     for tag, c in griffin.items():
         extra.update({f"{tag}_{key}": c[key] for key in
                       ("ms", "eager_ms", "plain_ms", "library_ms", "err",
@@ -1618,7 +1730,10 @@ def phase_attention(dev) -> list[dict]:
                           "(recurrentgemma-9b), ref_err against "
                           "decode_attention_ref; olmoe_s32: q (1, 16, 1, "
                           "128) k/v (1, 16, 32, 128) length 33 "
-                          "(olmoe-1b-7b's decode step)", **extra))
+                          "(olmoe-1b-7b's decode step); llama_b16_s32768: q "
+                          "(16, 32, 1, 64) k/v (16, 8, 32768, 64) full "
+                          "(llama3.2-1b's decode_32k cell at batch 16)",
+                    **extra))
     return rows
 
 
@@ -3381,6 +3496,7 @@ def restart_check(dev) -> dict:
         device=dev)
     restart_s = time.perf_counter() - t0
     ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("arrays.npz"))
+    elastic = elastic_check(dev, ckpt_dir, model, cfg)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     res = {"params": model.param_count(), "losses": a.losses,
            "repeat_bit_equal": a.losses == b.losses,
@@ -3389,7 +3505,8 @@ def restart_check(dev) -> dict:
            "resumed_max_rel_err": float(np.max(np.abs(
                np.asarray(r.losses) - np.asarray(a.losses[6:]))
                / np.abs(np.asarray(a.losses[6:])))),
-           "checkpoint_gb": ckpt_bytes / 1e9 / 2, "restart_run_s": restart_s}
+           "checkpoint_gb": ckpt_bytes / 1e9 / 2, "restart_run_s": restart_s,
+           "elastic": elastic}
     log(f"[train] (d) train_100m determinism and restart: {json.dumps(res)}")
     if not res["repeat_bit_equal"]:
         fail(f"two runs from one seed gave different losses: {a.losses} / "
@@ -3603,6 +3720,46 @@ def k6b_case(inputs, chunk, dtype, reps, faults=()) -> dict:
     return res
 
 
+def elastic_check(dev, ckpt_dir, model, cfg) -> dict:
+    """``elastic_restore`` of the restart run's last checkpoint onto the
+    host mesh: every parameter and moment a DTensor on the card with the
+    placements of its logical axes, its local tensor bit-equal to
+    ``restore_latest``'s on the card."""
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.distributed.sharding import (
+        Sharding,
+        make_rules,
+        spec_for,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import checkpoint as ckpt
+
+    mesh = make_host_mesh(dev)
+    t0 = time.perf_counter()
+    step, params, state = elastic_restore(str(ckpt_dir), model, cfg, mesh)
+    restore_s = time.perf_counter() - t0
+    want_step, tree = ckpt.restore_latest(str(ckpt_dir), dev)
+    rules = make_rules(cfg, mesh)
+    specs = model.param_specs()
+    bad = []
+    for k, p in params.items():
+        placed = Sharding(mesh, spec_for(specs[k].axes, rules)).placements
+        for t, w in ((p, tree["params"][k]),
+                     (state["opt"]["m"][k], tree["state"]["opt"]["m"][k]),
+                     (state["opt"]["v"][k], tree["state"]["opt"]["v"][k])):
+            if tuple(t.placements) != placed \
+                    or not bits_equal(t.to_local(), w):
+                bad.append(k)
+    res = {"step": step, "tensors": 3 * len(params), "restore_s": restore_s,
+           "bit_equal": not bad, "device": str(next(iter(
+               params.values())).to_local().device)}
+    log(f"[train] (d) elastic_restore onto the host mesh: {json.dumps(res)}")
+    if bad or step != want_step:
+        fail(f"elastic_restore differs from restore_latest: step {step} vs "
+             f"{want_step}, tensors {bad[:5]}")
+    return res
+
+
 def phase_train(dev, card) -> dict:
     """(a) K4b against its plain version and SDPA at llama3.2-1b's and
     recurrentgemma-9b's training shapes; (a') K3b and K6b against theirs at
@@ -3764,6 +3921,184 @@ def phase_train(dev, card) -> dict:
             launches[name] = launches.get(name, 0) + n
     return {"rows": rows, "launches": launches, "steps": steps,
             "slices": slices, "restart": rs}
+
+
+# ----------------------------------------------------------- phase 7b, launch
+# llama3.2-1b's cells through the launch layer: (shape, the global batch run
+# here); the cells' own batches are 256, 32 and 128
+LAUNCH_CELLS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 16))
+# each cell's kernel launches a step (K4 forward and again in the remat's
+# recompute, K4b backward; K4 a layer in the prefill; K5 a layer a decode)
+LAUNCH_KERNELS = {"train": {"flash_attention": 32, "flash_attention_bwd": 16},
+                  "prefill": {"flash_attention": 16},
+                  "decode": {"decode_attention": 16}}
+DRYRUN_TIMEOUT_S = 300
+LAUNCH_REPS = 5  # timed runs of each cell with the context, and without
+
+
+def _outputs(kind, out) -> dict:
+    """A cell step's outputs as a flat dict of tensors: the train cell's
+    loss and updated parameters, a serving cell's logits and cache."""
+    if kind == "train":
+        params, _, metrics = out
+        return {"loss": metrics["loss"].detach(),
+                **{f"params/{k}": p.detach() for k, p in params.items()}}
+    logits, cache = out
+    return {"logits": logits, **{f"cache/{k}": t for k, t in cache.items()}}
+
+
+def launch_cell(dev, mesh, name, batch, total) -> dict:
+    """One of llama3.2-1b's cells at full width: built by ``build_cell`` on
+    the host mesh, its peak reckoned, materialized at ``batch`` and run
+    once with no context (to warm it; its outputs are the reference), then
+    LAUNCH_REPS times under ``sharding_ctx(mesh, cell.rules)`` and as many
+    with no context, in turn, each on arguments materialized anew (the
+    step donates its cache or optimizer state) and timed on CUDA events;
+    every run's outputs bit-equal to the reference's."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import current_ctx, sharding_ctx
+    from repro_torch.launch.cost_analysis import analyze_cell
+    from repro_torch.launch.steps import build_cell, materialize
+
+    cell = build_cell(get_config(ARCH), SHAPES[name], mesh)
+    full = SHAPES[name].global_batch
+
+    def reckon(b):
+        est = analyze_cell(cell, global_batch=b)
+        # the reference run's outputs stay while another runs: the updated
+        # parameters (train), or a second set of arguments (serving)
+        mem = est["memory"]
+        held = mem["params_bytes"] if cell.kind == "train" \
+            else mem["argument_bytes"]
+        return est, mem["peak_bytes_estimate"] + held
+
+    est, peak = reckon(batch)
+    if cell.kind == "train" and peak > PEAK_FRACTION * total and batch > 1:
+        log(f"[launch] {name}: reckoned peak {peak / 2**30:.1f} GiB at batch "
+            f"{batch} passes {PEAK_FRACTION:.0%} of the card; batch 1")
+        batch = 1
+        est, peak = reckon(batch)
+    log(f"[launch] {name}: {cell.kind} cell of {ARCH} at full width, global "
+        f"batch {batch} (reduced from {full}); reckoned peak "
+        f"{peak / 2**30:.1f} GiB of {total / 2**30:.1f} GiB")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def run(ctx: bool):
+        args = materialize(cell, dev, global_batch=batch, seed=0)
+        torch.cuda.synchronize(dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(kernels.recording())
+            if ctx:
+                stack.enter_context(sharding_ctx(mesh, cell.rules))
+                if current_ctx() is None:
+                    fail("launch: no sharding context")
+            start.record()
+            out = _outputs(cell.kind, cell.step(*args))
+            end.record()
+            torch.cuda.synchronize(dev)
+        del args
+        return out, start.elapsed_time(end), rec
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    plain, warm_ms, rec = run(False)
+    recs, unequal, finite = [rec], set(), True
+    runs = {True: [], False: []}
+    for r in range(LAUNCH_REPS):
+        for ctx in (True, False) if r % 2 == 0 else (False, True):
+            free()
+            got, ms, rec = run(ctx)
+            runs[ctx].append(ms)
+            recs.append(rec)
+            unequal.update(k for k in plain if not bits_equal(got[k],
+                                                              plain[k]))
+            finite &= all(bool(torch.isfinite(t).all()) for t in got.values()
+                          if t.is_floating_point())
+            del got
+    med, plain_med = (statistics.median(runs[c]) for c in (True, False))
+    launches = {}
+    for rec in recs:
+        for k, n in rec.items():
+            launches[k] = launches.get(k, 0) + n
+    res = {"cell": name, "kind": cell.kind, "batch": batch,
+           "reduced_from": full, "ms": med, "ms_runs": runs[True],
+           "ms_spread": max(runs[True]) - min(runs[True]),
+           "no_context_ms": plain_med, "no_context_ms_runs": runs[False],
+           "warm_ms": warm_ms, "flops": est["hlo"]["flops"],
+           "kernel_flops": est["hlo"]["kernel_flops"],
+           "tflops": est["hlo"]["flops"] / med / 1e9,
+           "launches": launches, "runs": len(recs),
+           "bit_equal": not unequal, "finite": finite,
+           "reckoned_peak_gib": peak / 2**30,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "rules_batch": cell.rules["batch"]}
+    if cell.kind == "train":
+        res["loss"] = float(plain["loss"])
+    del plain
+    free()
+    want = LAUNCH_KERNELS[cell.kind]
+    if unequal or not finite or any(rec != want for rec in recs):
+        fail(f"launch {name}: outputs not bit-equal {sorted(unequal)[:5]}, "
+             f"finite {finite}, or launches {recs} != {want} a run: {res}")
+    return res
+
+
+def phase_launch(dev, card) -> dict:
+    """llama3.2-1b's train_4k, prefill_32k and decode_32k cells through the
+    launch layer on the host mesh (``launch_cell``), each line with its
+    time beside the card; and the dry run
+    (``python -m repro_torch.launch.dryrun --arch llama3.2-1b --mesh
+    both``) in a subprocess meanwhile, which must exit 0. Returns the cells
+    and their summed launches."""
+    import os
+
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    from repro_torch.launch.mesh import destroy_group
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--mesh", "both", "--out-dir", str(ROOT / "build" / "dryrun")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        mesh = make_host_mesh(dev)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        cells = []
+        for name, batch in LAUNCH_CELLS:
+            c = launch_cell(dev, mesh, name, batch, total)
+            log(f"[launch] {name} ({card}): {json.dumps(c)}")
+            cells.append(c)
+        out, _ = dry.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        destroy_group()  # the one-process group of the host mesh
+    dry_s = time.perf_counter() - t_dry
+    for line in out.splitlines():
+        log(f"[launch] dryrun: {line}")
+    if dry.returncode != 0:
+        fail(f"the dry run exited {dry.returncode}")
+    launches = {}
+    for c in cells:
+        for k, n in c["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"cells": cells, "launches": launches, "dryrun_s": dry_s}
 
 
 def np_equal(a, b) -> bool:

@@ -18,6 +18,13 @@ backward kernel there, and a checkpointed layer (``carry_recording``) runs
 its recompute, the forward kernels' relaunch, in that tally too, so a block
 around ``loss.backward()`` sees both.
 
+``counting`` is the dry run's mode: inside its block a model kernel's
+wrapper (K3-K6, K3b, K4b, K6b) given fake or meta tensors runs nothing,
+returns empty outputs of the right shapes and dtypes, and adds its kernel's
+operation counts (``flops.py``) to the block's dict; on tensors with data
+it launches or runs its plain version as ever. So a step traced over fake
+tensors never steps a plain scan's Python loop over time.
+
 Importing this package imports torch only: the kernels are compiled
 (``_build``) the first time a wrapper meets a CUDA tensor.
 """
@@ -108,6 +115,25 @@ def recording():
                     outer[fn] = outer.get(fn, 0) + n
         out.update({name: counts[fn] for name, fn in wrappers().items()
                     if fn in counts})
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the model kernels' calls on fake or meta tensors made by the
+    calling thread inside the block (autograd runs a CPU graph's backward
+    on the calling thread). Yields ``{kernel name: {"calls", "flops",
+    "dense_flops"}}``, filled as the calls are made: ``flops`` the kernel's
+    own work, ``dense_flops`` what ``FlopCounterMode`` counts over its
+    plain version (``flops.py``). An inner block counts apart from the
+    outer one."""
+    from repro_torch.kernels import _build
+
+    outer = getattr(_build._COUNTING, "tally", None)
+    _build._COUNTING.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _build._COUNTING.tally = outer
 
 
 def carry_recording(fn):

@@ -55,6 +55,7 @@ _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()  # guards every wrapper's ``launches``
 _RECORDING = threading.local()  # .tally: {wrapper: launches} of this thread
+_COUNTING = threading.local()  # .tally: {kernel: counts} of this thread
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 
@@ -158,8 +159,14 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device pointer, or NULL for ``None``."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+    """A tensor's device pointer, or NULL for ``None``. A DTensor is
+    refused: a kernel takes plain tensors (a DTensor's ``to_local()``)."""
+    if t is None:
+        return ctypes.c_void_p(None)
+    if type(t).__name__ == "DTensor":
+        raise TypeError("a kernel takes plain tensors, got a DTensor; pass "
+                        "its to_local()")
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def stream_of(t) -> int:
@@ -193,6 +200,31 @@ def counted(wrapper, tally=None) -> None:
         wrapper.launches += 1
         if tally is not None:
             tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+def abstract(*tensors) -> bool:
+    """Whether a ``repro_torch.kernels.counting`` block is open on the
+    calling thread and one of ``tensors`` is a fake or a meta tensor: a
+    wrapper then counts its kernel's operations (``count``) and returns
+    empty outputs instead of running anything. Never true for a tensor
+    with data, on any device."""
+    if getattr(_COUNTING, "tally", None) is None:
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(t is not None and (t.is_meta or isinstance(t, FakeTensor))
+               for t in tensors)
+
+
+def count(name: str, work: float, dense: float) -> None:
+    """Add one call of kernel ``name`` and its operations (``flops.py``:
+    the kernel's own work, and what its plain version's products count) to
+    the calling thread's open ``counting`` block."""
+    entry = _COUNTING.tally.setdefault(
+        name, {"calls": 0, "flops": 0.0, "dense_flops": 0.0})
+    entry["calls"] += 1
+    entry["flops"] += work
+    entry["dense_flops"] += dense
 
 
 def needs_grad(*tensors) -> bool:

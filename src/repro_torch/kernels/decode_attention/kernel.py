@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, flops
 
 NEG_INF = -2.0e38
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -127,7 +127,14 @@ def decode_attention_bhd(q, k, v, lengths, *, out=None):
     CPU tensors take the plain version; CUDA tensors launch
     ``decode_attention_{f32,bf16}`` (the split kernel, and the combine
     kernel when ``decode_splits`` gives more than one split) or raise. The
-    float32 workspace of the partial softmax states is allocated here."""
+    float32 workspace of the partial softmax states is allocated here. In a
+    ``kernels.counting`` block, fake or meta tensors run nothing: the call
+    is counted (over every slot) and ``out`` returned."""
+    if _build.abstract(q, k, v):
+        B, H, _, D = q.shape
+        _build.count("decode_attention", *flops.decode(B, H, k.shape[2], D))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device) \
+            if out is None else out
     if q.device.type == "cpu":
         res = decode_attention_plain(q, k, v, lengths)
         return res if out is None else out.copy_(res)

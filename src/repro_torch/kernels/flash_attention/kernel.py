@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, flops
 
 NEG_INF = -2.0e38
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -122,7 +122,15 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
     ``flash_attention_{f32,bf16}`` or raise. Where autograd needs a
     gradient through the call on the card it goes through
     ``ops.FlashAttentionFn`` (forward K4, backward K4b), which writes no
-    ``out`` or ``lse`` in place."""
+    ``out`` or ``lse`` in place. In a ``kernels.counting`` block, fake or
+    meta tensors run nothing: the call is counted and ``out`` returned
+    (``lse`` is left as given)."""
+    if _build.abstract(q, k, v):
+        B, H, Sq, D = q.shape
+        _build.count("flash_attention", *flops.attention(
+            B, H, Sq, k.shape[2], D, causal, window))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device) \
+            if out is None else out
     if q.device.type != "cpu" and _build.needs_grad(q, k, v):
         if out is not None or lse is not None:
             raise ValueError("flash_attention: no in-place out= or lse= "
@@ -225,7 +233,16 @@ def flash_attention_bwd_bhsd(q, k, v, o, do, *, causal: bool = True,
     sum of head-split partials where the bf16 pass splits, then dq; one
     call, one count) or raise, also without ``lse``. The launch is counted
     in ``tally`` when given (``FlashAttentionFn`` passes the ``recording``
-    tally open where its forward ran), else in the calling thread's."""
+    tally open where its forward ran), else in the calling thread's. In a
+    ``kernels.counting`` block, fake or meta tensors run nothing: the call
+    is counted and empty (or the given) gradients returned."""
+    if _build.abstract(q, k, v, o, do):
+        B, H, Sq, D = q.shape
+        _build.count("flash_attention_bwd", *flops.attention_bwd(
+            B, H, Sq, k.shape[2], D, causal, window))
+        return tuple(torch.empty(like.shape, dtype=like.dtype,
+                                 device=like.device) if t is None else t
+                     for t, like in ((dq, q), (dk, k), (dv, v)))
     if q.device.type == "cpu":
         res = flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                         window=window, lse=lse)

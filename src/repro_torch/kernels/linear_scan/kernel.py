@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, flops
 
 CHUNK_ROWS = 128  # rows per chunk of the chunked regime
 
@@ -58,7 +58,15 @@ def linear_scan_bsd(x: torch.Tensor, a: torch.Tensor | None = None):
     ``linear_scan_fold_{f32,f64}`` or ``linear_scan_chunked_f32`` (by
     ``scan_regime``) or raise. Where autograd needs a gradient through a
     chunked call on the card it goes through ``ops.LinearScanFn`` (forward
-    K3, backward K3b); the fold regime refuses it."""
+    K3, backward K3b); the fold regime refuses it. In a
+    ``kernels.counting`` block, fake or meta tensors run nothing: the call
+    is counted and empty outputs returned."""
+    if _build.abstract(x, a):
+        B, S, D = x.shape
+        _build.count("linear_scan", *flops.linear_scan(B, S, D,
+                                                       a is not None))
+        return torch.empty_like(x), torch.empty((B, D), dtype=x.dtype,
+                                                device=x.device)
     if x.device.type == "cpu":
         return linear_scan_plain(x, a)
     if scan_regime(x, a) == "chunked" and _build.needs_grad(x, a):
@@ -129,7 +137,11 @@ def linear_scan_bwd_bsd(dh, dfinal, a, h, *, tally=None):
     ``linear_scan_chunked_bwd_f32`` (two passes: one call, one count) or
     raise. The launch is counted in ``tally`` when given (``LinearScanFn``
     passes the ``recording`` tally open where its forward ran), else in the
-    calling thread's."""
+    calling thread's. In a ``kernels.counting`` block, fake or meta
+    tensors run nothing: the call is counted and empty outputs returned."""
+    if _build.abstract(dh, a, h):
+        _build.count("linear_scan_bwd", *flops.linear_scan_bwd(*h.shape))
+        return torch.empty_like(h), torch.empty_like(h)
     if h.device.type == "cpu":
         return linear_scan_bwd_plain(dh, dfinal, a, h)
     _build.refuse_grad("linear_scan_bwd", dh, dfinal, a, h)

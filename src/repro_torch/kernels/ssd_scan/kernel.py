@@ -75,7 +75,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, flops
 
 NEG_INF = -2.0e38
 MAX_CHUNK = 128
@@ -208,7 +208,16 @@ def ssd_scan_bhsd(x, dt, A, B, C, *, chunk: int = 128, out=None,
     chunked one: one call, one count) or raise. Where autograd needs a
     gradient through the call on the card it goes through
     ``ops.SSDScanFn`` (forward K6, backward K6b), which writes no ``out``
-    in place."""
+    in place. In a ``kernels.counting`` block, fake or meta tensors run
+    nothing: the call is counted and empty outputs (or ``out``)
+    returned."""
+    if _build.abstract(x, dt, A, B, C):
+        b, H, S, hd = x.shape
+        _build.count("ssd_scan", *flops.ssd(b, H, S, hd, B.shape[-1], chunk))
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device) \
+            if out is None else out
+        return y, torch.empty((b, H, hd, B.shape[-1]), dtype=torch.float32,
+                              device=x.device)
     if x.device.type == "cpu":
         y, state = ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         return (y if out is None else out.copy_(y)), state
@@ -308,7 +317,20 @@ def ssd_scan_bwd_bhsd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
     bf16, seven CUDA-core passes in float32: one call, one count) or
     raise. The launch is counted in ``tally`` when given
     (``SSDScanFn`` passes the ``recording`` tally open where its forward
-    ran), else in the calling thread's."""
+    ran), else in the calling thread's. In a ``kernels.counting`` block,
+    fake or meta tensors run nothing: the call is counted and empty
+    outputs returned."""
+    if _build.abstract(x, dt, A, B, C, dy):
+        b, H, S, hd = x.shape
+        _build.count("ssd_scan_bwd", *flops.ssd_bwd(b, H, S, hd, B.shape[-1],
+                                                    chunk))
+        f32 = torch.float32
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                if dx is None else dx,
+                torch.empty((b, H, S), dtype=f32, device=x.device),
+                torch.empty(A.shape, dtype=f32, device=x.device),
+                torch.empty(B.shape, dtype=B.dtype, device=x.device),
+                torch.empty(C.shape, dtype=C.dtype, device=x.device))
     if x.device.type == "cpu":
         res = ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=chunk)
         return (res[0] if dx is None else dx.copy_(res[0]),) + res[1:]

@@ -17,11 +17,21 @@ differentiates its XLA path instead.
 The windowed ring-buffer decode (a local-window cache with slot positions)
 has no kernel in the reference either and stays plain torch here, computed
 as the reference's XLA path computes it.
+
+Context parallelism (``cp_chunked_attention``, taken when ``attention`` is
+given ``cp_ways`` > 1: the model passes what the "seq" axis resolves to
+under a sharding context with ``cfg.cp_attn``) is plain torch as in the
+reference, which has no kernel for it either: the query sequence folded
+into (outer, ways, q_chunk) blocks, ``ways`` a tensor dim the sharding
+annotates with "seq". On one card "seq" resolves to at most 1 way, so the
+card never takes it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -29,11 +39,73 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 NEG_INF = -2.0e38
 
 
-def attention(q, k, v, *, causal=True, window=0, impl="xla"):
-    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, H, D) through the
-    flash-attention kernel; ``impl`` is not routed on. (The reference's
-    ``q_chunk``, ``banded`` and context-parallel arguments shape its
-    chunked XLA path, which the port does not have.)"""
+def cp_chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_chunk: int = 512, ways: int = 16, shard_fn=None):
+    """Context-parallel flash-style attention, the reference's: the query
+    sequence folded into (outer, ways, qc) with ``ways`` a tensor dim that
+    ``shard_fn`` annotates with "seq"; a loop over ``outer`` only, each
+    block's body checkpointed (its scores are recomputed in the backward
+    pass). q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in
+    v's dtype; scores and softmax in float32, the probabilities rounded to
+    v's dtype before the P.V product, as the reference does."""
+    shard_fn = shard_fn or (lambda a, axes: a)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qc = min(q_chunk, max(Sq // ways, 1))
+    span = ways * qc
+    pad = (-Sq) % span
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    outer = (Sq + pad) // span
+    qg = q.reshape(B, outer, ways, qc, Hkv, G, D)
+    k_pos = torch.arange(Skv, device=q.device)
+    blk_axes = ("batch", "seq", None, None, None, None)
+
+    def body(q_blk, o_idx: int):  # q_blk: (B, ways, qc, Hkv, G, D)
+        q_blk = shard_fn(q_blk, blk_axes)
+        q_pos = (o_idx * span
+                 + torch.arange(ways, device=q.device)[:, None] * qc
+                 + torch.arange(qc, device=q.device)[None, :])  # (ways, qc)
+        s = torch.einsum("bwqkgd,bskd->bwkgqs", q_blk.float(),
+                         k.float()) * scale
+        s = shard_fn(s, blk_axes)
+        mask = torch.ones((ways, qc, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, None, :] <= q_pos[:, :, None]
+        if window and window > 0:
+            mask &= k_pos[None, None, :] > (q_pos[:, :, None] - window)
+        s = torch.where(mask[None, :, None, None, :, :], s, NEG_INF)
+        s = s - s.amax(-1, keepdim=True).detach()
+        p = torch.exp(s)
+        p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+        out = torch.einsum("bwkgqs,bskd->bwqkgd", p.to(v.dtype), v)
+        return shard_fn(out, blk_axes)
+
+    outs = []
+    for o in range(outer):
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(body, qg[:, o], o, use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(body(qg[:, o], o))
+    out = torch.stack(outs, dim=1).reshape(B, Sq + pad, H, D)
+    return out[:, :Sq]
+
+
+def attention(q, k, v, *, causal=True, window=0, impl="xla", q_chunk=512,
+              cp_ways=0, shard_fn=None):
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, H, D): with
+    ``cp_ways`` > 1 the context-parallel ``cp_chunked_attention`` (over
+    ``q_chunk`` blocks, annotated by ``shard_fn``), else the flash-attention
+    kernel; ``impl`` is not routed on. (The reference's ``banded`` shapes
+    its chunked XLA path, which the port does not have; the kernel skips
+    the key tiles a window leaves out on its own.)"""
+    if cp_ways and cp_ways > 1:
+        return cp_chunked_attention(q, k, v, causal=causal, window=window,
+                                    q_chunk=q_chunk, ways=cp_ways,
+                                    shard_fn=shard_fn)
     return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
 
 

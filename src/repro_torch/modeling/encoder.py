@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.modeling.attention import attention
 from repro_torch.modeling.layers import (
     apply_norm,
@@ -103,9 +104,11 @@ class AudioEncoder(LM):
         att = attention(q, k, v, causal=False, window=0, impl=cfg.attn_impl)
         B, S = att.shape[:2]
         wo = p["attn/o"].to(x.dtype)
-        x = x + att.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        x = x + shard(att.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]),
+                      ("batch", None, None))
         h2 = apply_norm(cfg.norm, x, p, "ln_mlp")
-        return x + mlp_apply(cfg, subtree(p, "mlp"), h2)
+        return x + shard(mlp_apply(cfg, subtree(p, "mlp"), h2),
+                         ("batch", None, None))
 
     def forward(self, params, batch):
         """(hidden (B, S, D) after ``ln_f``, a float32 zero: the encoder has
@@ -120,6 +123,7 @@ class AudioEncoder(LM):
             x = x * (1.0 - m) + params["mask_emb"].to(dt) * m
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, dt,
                                      x.device)[None]
+        x = shard(x, ("batch", None, None))
         run = _maybe_remat(self._layer, cfg.remat)
         for p in layer_slices(subtree(params, "layers")):
             x = run(p, x)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.modeling.attention import attention, decode_attention
 from repro_torch.modeling.layers import apply_norm, norm_specs
 from repro_torch.modeling.lm import (
@@ -134,9 +135,11 @@ class GriffinLM(LM):
         mix, st, cv = rglru_block_apply(cfg, subtree(p, "mixer"), h,
                                         state=state, conv_state=conv,
                                         impl=cfg.attn_impl)
-        x = x + mix
+        # no sequence sharding here: the RG-LRU scan is sequential in S
+        x = x + shard(mix, ("batch", None, None))
         h2 = apply_norm(cfg.norm, x, p, "ln_mlp")
-        return x + mlp_apply(cfg, subtree(p, "mlp"), h2), st, cv
+        return x + shard(mlp_apply(cfg, subtree(p, "mlp"), h2),
+                         ("batch", None, None)), st, cv
 
     def _attn_layer(self, p, x, positions, mode, kc=None, vc=None,
                     slot=None, lengths=None):
@@ -152,6 +155,8 @@ class GriffinLM(LM):
             vc.index_copy_(1, slot, v)
             att = decode_attention(q, kc, vc, lengths, impl=cfg.attn_impl)
         else:
+            if cfg.cp_attn:
+                q = shard(q, ("batch", "seq", None, None))
             att = attention(q, k, v, causal=True, window=W,
                             impl=cfg.attn_impl)
             if mode == "prefill":
@@ -163,9 +168,13 @@ class GriffinLM(LM):
                 vc = torch.roll(v[:, -kv_len:], shift, dims=1)
         B, S = att.shape[:2]
         wo = p["attn/o"].to(x.dtype)
-        x = x + att.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        x = x + shard(att.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]),
+                      ("batch", None, None))
+        if cfg.sp_acts and mode == "train":
+            x = shard(x, ("batch", "seq", None))
         h2 = apply_norm(cfg.norm, x, p, "ln_mlp")
-        return x + mlp_apply(cfg, subtree(p, "mlp"), h2), kc, vc
+        return x + shard(mlp_apply(cfg, subtree(p, "mlp"), h2),
+                         ("batch", None, None)), kc, vc
 
     def _run(self, params, x, positions, mode, cache=None):
         """The layer loop, shared by forward, prefill and decode. Prefill
@@ -223,7 +232,7 @@ class GriffinLM(LM):
 
     def forward(self, params, batch):
         """Scoring forward: returns (hidden (B, S, D), aux_loss = 0)."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, _ = self._run(params, x, positions, "train")
         x = apply_norm(self.cfg.norm, x, params, "ln_f")
@@ -252,12 +261,19 @@ class GriffinLM(LM):
                 "k": (kv, self.dtype), "v": (kv, self.dtype),
                 "pos": ((), torch.int32)}
 
+    def cache_axes(self) -> dict:
+        """Logical axes of ``cache_shape``'s tensors."""
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        return {"state": ("layers", "batch", "rnn"),
+                "conv": ("layers", "batch", None, "rnn"),
+                "k": kv, "v": kv, "pos": ()}
+
     def prefill(self, params, batch, cache_len: int | None = None):
         """Process a full prompt; returns (last-token logits (B, V) float32,
         cache). The rings are zero-padded to ``min(cache_len, attn_window)``
         slots when that is more than the prompt fills."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed_inputs(params, batch)
         S = x.shape[1]
         cache_len = cache_len or S
         positions = torch.arange(S, device=x.device)[None, :]

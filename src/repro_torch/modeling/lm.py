@@ -27,6 +27,14 @@ is already in that dtype); norm scales and the MoE router are used in
 float32; the logits are float32 with float32 accumulation from
 ``cfg.dtype`` operands.
 
+Sharding: the model annotates its activations with ``shard(x, logical
+axes)`` (``distributed/sharding.py``) where the reference does; outside a
+``sharding_ctx`` each call returns its input, so a single-card run
+computes as it did before. With ``cfg.cp_attn`` a training or prefill
+layer's attention is ``cp_chunked_attention`` when the context's "seq"
+axis resolves to more than one way (never on one card); ``cfg.sp_acts``
+annotates a training layer's residuals as sequence-sharded.
+
 Serving trap kept on purpose: the reference writes a decode step's K/V with
 ``lax.dynamic_update_slice``, which clamps the start so the update fits. An
 executor that decodes past its cache therefore overwrites the last slot at
@@ -65,6 +73,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch import kernels
+from repro_torch.distributed.sharding import axis_ways, shard
 from repro_torch.modeling.attention import attention, decode_attention
 from repro_torch.modeling.layers import (
     activation,
@@ -76,6 +85,7 @@ from repro_torch.modeling.layers import (
 from repro_torch.modeling.moe import moe_apply, moe_specs
 from repro_torch.modeling.module import (
     ParamSpec,
+    abstract_params,
     init_params,
     layer_slices,
     param_count,
@@ -108,6 +118,7 @@ def mlp_apply(cfg, p: dict, x):
         h = activation(cfg.act, x @ p["wi_0"].to(dt), x @ p["wi_1"].to(dt))
     else:
         h = activation(cfg.act, x @ p["wi"].to(dt))
+    h = shard(h, ("batch", None, "mlp_act"))
     return h @ p["wo"].to(dt)
 
 
@@ -135,6 +146,9 @@ def attn_qkv(cfg, p: dict, h, positions):
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, ("batch", None, "heads", None))
+    k = shard(k, ("batch", None, "kv_heads", None))
+    v = shard(v, ("batch", None, "kv_heads", None))
     return q, k, v
 
 
@@ -318,6 +332,12 @@ class LM(nn.Module):
             return t
         return t.to(self.dtype)
 
+    def abstract_params(self, dtype=None) -> dict[str, torch.Tensor]:
+        """Every parameter as a ``meta`` tensor (default dtype
+        ``cfg.param_dtype``): nothing is allocated."""
+        return abstract_params(self.param_specs(),
+                               dtype or torch_dtype(self.cfg.param_dtype))
+
     def param_count(self) -> int:
         return param_count(self.param_specs())
 
@@ -356,7 +376,7 @@ class LM(nn.Module):
             dt = self.dtype
             ve = batch["vision_embeds"].to(dt) @ params["vision_proj/w"].to(dt)
             x = torch.cat([ve, x], dim=1)
-        return x
+        return shard(x, ("batch", None, None))
 
     def _cache_entries(self, k, v) -> dict:
         """A layer's K/V as its cache holds them: ``{"k", "v"}``, with
@@ -391,22 +411,34 @@ class LM(nn.Module):
                 positions=torch.arange(k_att.shape[1], device=x.device),
                 impl=cfg.attn_impl)
         else:
+            # context parallelism: query blocks over the "seq" axis (what
+            # it resolves to under a sharding context; never more than one
+            # way on one card)
+            ways = axis_ways("seq") if cfg.cp_attn else 0
             att = attention(q, k, v, causal=True, window=cfg.attn_window,
-                            impl=cfg.attn_impl)
+                            impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
+                            cp_ways=ways, shard_fn=shard)
             if mode == "prefill":
                 kv = self._cache_entries(k, v)
         B, S = att.shape[:2]
         wo = p["attn/o"].to(x.dtype)
-        x = x + att.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        x = x + shard(att.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]),
+                      ("batch", None, None))
+        if cfg.sp_acts and mode == "train":
+            # sequence-sharded residuals between blocks (Megatron-style)
+            x = shard(x, ("batch", "seq", None))
         h2 = apply_norm(cfg.norm, x, p, "ln_mlp")
         aux = None
         if moe:
-            y, aux = moe_apply(cfg, subtree(p, "moe"), h2)
+            y, aux = moe_apply(cfg, subtree(p, "moe"), h2, shard_fn=shard)
             if cfg.shared_expert:
                 y = y + mlp_apply(cfg, subtree(p, "shared_mlp"), h2)
         else:
             y = mlp_apply(cfg, subtree(p, "mlp"), h2)
-        return x + y, aux, kv
+        x = x + shard(y, ("batch", None, None))
+        if cfg.sp_acts and mode == "train":
+            x = shard(x, ("batch", "seq", None))
+        return x, aux, kv
 
     def _layers(self, params) -> list[tuple[dict, bool]]:
         """Every layer's (params, is MoE) in depth order, the cache's: in
@@ -524,6 +556,16 @@ class LM(nn.Module):
             out["k_scale"] = out["v_scale"] = (shp[:-1] + (1,), torch.float32)
         return out
 
+    def cache_axes(self) -> dict:
+        """Logical axes of ``cache_shape``'s tensors: the KV sequence axis
+        carries the model parallelism when the KV heads cannot
+        (flash-decode style)."""
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        out = {"k": kv, "v": kv, "pos": ()}
+        if self.cfg.kv_quant:
+            out["k_scale"] = out["v_scale"] = kv
+        return out
+
     def init_cache(self, batch_size: int, cache_len: int, device=None) -> dict:
         return {name: torch.zeros(shape, dtype=dt, device=device)
                 for name, (shape, dt) in
@@ -563,7 +605,8 @@ class LM(nn.Module):
         Writes the token's K/V into ``cache`` and advances ``cache["pos"]``
         in place; returns (logits (B, V) float32, cache)."""
         cfg = self.cfg
-        x = self._embed(params, batch["token"])[:, None, :]
+        x = shard(self._embed(params, batch["token"])[:, None, :],
+                  ("batch", None, None))
         positions = cache["pos"].expand(x.shape[0], 1)
         x, _, _ = self._trunk(params, x, positions, "decode", cache=cache)
         x = apply_norm(cfg.norm, x, params, "ln_f")

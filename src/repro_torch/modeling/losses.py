@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.modeling.layers import softcap
 from repro_torch.modeling.lm import logits_f32
 
@@ -22,7 +23,7 @@ def _xent_sum(h_c, w_unembed, t_c, m_c, cap: float, impl: str):
     """(masked loss sum, mask sum) of one (B, c) chunk."""
     B, c, D = h_c.shape
     logits = logits_f32(h_c.reshape(B * c, D), w_unembed).reshape(B, c, -1)
-    logits = softcap(logits, cap)
+    logits = shard(softcap(logits, cap), ("batch", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
     t = t_c.long()[..., None]
     if impl == "gather":
@@ -62,7 +63,7 @@ def full_softmax_xent(h, w_unembed, targets, mask, cap: float = 0.0):
     """The unchunked path (tests and the baseline): (loss sum, mask sum)."""
     B, S, D = h.shape
     logits = logits_f32(h.reshape(B * S, D), w_unembed).reshape(B, S, -1)
-    logits = softcap(logits, cap)
+    logits = shard(softcap(logits, cap), ("batch", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
     onehot = torch.zeros_like(logits).scatter_(-1, targets.long()[..., None],
                                                1.0)

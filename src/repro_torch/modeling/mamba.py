@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.modeling.layers import apply_norm, norm_specs
 from repro_torch.modeling.lm import LM, _maybe_remat, logits_f32
 from repro_torch.modeling.module import (
@@ -90,7 +91,7 @@ class MambaLM(LM):
             h = apply_norm(cfg.norm, x, p, "ln")
             y, st, cv = ssd_block_apply(cfg, subtree(p, "mixer"), h, state=st,
                                         conv_state=cv, impl=cfg.attn_impl)
-            x = x + y
+            x = x + shard(y, ("batch", None, None))
             out.append((st, cv))
         return apply_norm(cfg.norm, x, params, "ln_f"), out
 
@@ -98,12 +99,12 @@ class MambaLM(LM):
         h = apply_norm(self.cfg.norm, x, p, "ln")
         y, _, _ = ssd_block_apply(self.cfg, subtree(p, "mixer"), h,
                                   impl=self.cfg.attn_impl)
-        return x + y
+        return x + shard(y, ("batch", None, None))
 
     def forward(self, params, batch):
         """Training/scoring forward: returns (hidden (B, S, D), aux_loss =
         0); ``cfg.remat`` checkpoints each layer."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed_inputs(params, batch)
         layer = _maybe_remat(self._train_layer, self.cfg.remat)
         for p in layer_slices(subtree(params, "layers")):
             x = layer(p, x)
@@ -122,10 +123,16 @@ class MambaLM(LM):
                          self.dtype),
                 "pos": ((), torch.int32)}
 
+    def cache_axes(self) -> dict:
+        """Logical axes of ``cache_shape``'s tensors."""
+        return {"state": ("layers", "batch", "ssm_heads", None, None),
+                "conv": ("layers", "batch", None, "rnn"),
+                "pos": ()}
+
     def prefill(self, params, batch, cache_len: int | None = None):
         """Process a full prompt; returns (last-token logits (B, V) float32,
         cache)."""
-        x, out = self._trunk(params, self._embed(params, batch["tokens"]))
+        x, out = self._trunk(params, self._embed_inputs(params, batch))
         logits = logits_f32(x[:, -1, :], self._unembed(params).to(x.dtype))
         cache = {"state": torch.stack([st for st, _ in out]),
                  "conv": torch.stack([cv for _, cv in out]).to(self.dtype),

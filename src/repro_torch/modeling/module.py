@@ -12,8 +12,10 @@ numbers differ from ``jax.random``'s for the same seed; tests that compare
 the two packages carry the JAX params across instead.
 
 The logical axis names of each spec (``"embed"``, ``"heads"``, ``"mlp"``,
-...) are kept from the reference for the later sharded slices; on one card
-they are documentation only.
+...) are mapped to mesh axes by ``repro_torch.distributed.sharding``
+(``param_axes``); ``abstract_params`` gives the parameters as tensors on the
+``meta`` device, for the launch layer's cells and dry run, allocating
+nothing.
 """
 
 from __future__ import annotations
@@ -101,6 +103,18 @@ def init_params(generator: torch.Generator, specs: dict[str, ParamSpec],
     return {path: init_param(generator, spec, dtype, device,
                              None if cast is None else cast(path, probe).dtype)
             for path, spec in sorted(specs.items())}
+
+
+def abstract_params(specs: dict[str, ParamSpec],
+                    dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """Every parameter as a ``meta`` tensor of its shape in ``dtype``: no
+    memory is allocated."""
+    return {p: torch.empty(s.shape, dtype=dtype, device="meta")
+            for p, s in specs.items()}
+
+
+def param_axes(specs: dict[str, ParamSpec]) -> dict[str, tuple[str | None, ...]]:
+    return {p: s.axes for p, s in specs.items()}
 
 
 def param_count(specs: dict[str, ParamSpec]) -> int:

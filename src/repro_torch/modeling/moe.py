@@ -64,17 +64,21 @@ def moe_specs(cfg) -> dict[str, ParamSpec]:
     return specs
 
 
-def moe_apply(cfg, p: dict, x):
-    """x: (B, S, D) -> (y, aux_loss). ``p`` holds this layer's MoE params.
+def moe_apply(cfg, p: dict, x, shard_fn=None):
+    """x: (B, S, D) -> (y, aux_loss). ``p`` holds this layer's MoE params;
+    ``shard_fn(tensor, logical axes)`` annotates the dispatch and the
+    expert inputs and outputs (the model passes ``sharding.shard``; the
+    identity when None).
 
     With ``cfg.moe_batch_groups``, a step shorter than a group (decode)
     with B > 1 pools all B·S tokens into one group (one capacity pool)."""
+    shard = shard_fn or (lambda a, axes: a)
     B, S, D = x.shape
     if getattr(cfg, "moe_batch_groups", False) and S < cfg.moe_group and B > 1:
-        y, aux = _moe_apply_grouped(cfg, p, x.reshape(1, B * S, D),
+        y, aux = _moe_apply_grouped(cfg, p, x.reshape(1, B * S, D), shard,
                                     batch_in_group=True)
         return y.reshape(B, S, D), aux
-    return _moe_apply_grouped(cfg, p, x, batch_in_group=False)
+    return _moe_apply_grouped(cfg, p, x, shard, batch_in_group=False)
 
 
 def _top_k(probs, k: int):
@@ -118,12 +122,15 @@ def _route(cfg, p: dict, xg, C: int):
     return probs, gate_vals, expert_idx, keep, eoh, poh
 
 
-def _moe_apply_grouped(cfg, p: dict, x, batch_in_group: bool):
+def _moe_apply_grouped(cfg, p: dict, x, shard, batch_in_group: bool):
     B, S, D = x.shape
     g = min(cfg.moe_group, S)
     while S % g:  # largest divisor of S not exceeding the requested group size
         g -= 1
     nG = S // g
+    # with batch_in_group, the flattened token dim keeps the batch sharding
+    tok_axes = (None, None, "batch") if batch_in_group \
+        else ("batch", None, None)
     E, K = cfg.n_experts, cfg.top_k
     if batch_in_group:
         # capacity from the actual pooled-token count (decode: g = B·S)
@@ -138,10 +145,12 @@ def _moe_apply_grouped(cfg, p: dict, x, batch_in_group: bool):
     dispatch = torch.einsum("bngke,bngkc->bngec", eoh, poh)
     combine = torch.einsum("bngke,bngkc->bngec", eoh * gate_vals[..., None],
                            poh)
+    dispatch = shard(dispatch, tok_axes + ("experts", None))
 
     # ---- expert computation: one batched product over (E, C) rows --------
     dt = x.dtype
     xe = torch.einsum("bngec,bngd->bnecd", dispatch.to(dt), xg)
+    xe = shard(xe, (tok_axes[0], None, "experts", None, None))
     if is_gated(cfg.act):
         h = activation(
             cfg.act,
@@ -151,6 +160,7 @@ def _moe_apply_grouped(cfg, p: dict, x, batch_in_group: bool):
         h = activation(cfg.act,
                        torch.einsum("bnecd,edf->bnecf", xe, p["wi"].to(dt)))
     ye = torch.einsum("bnecf,efd->bnecd", h.to(dt), p["wo"].to(dt))
+    ye = shard(ye, (tok_axes[0], None, "experts", None, None))
     y = torch.einsum("bngec,bnecd->bngd", combine.to(dt), ye)
     y = y.reshape(B, S, D)
 

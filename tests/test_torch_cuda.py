@@ -2598,3 +2598,81 @@ def test_moe_train_step_recording_counts_k4_and_k4b_on_card(cuda_device):
     assert all(torch.isfinite(g).all() for g in grads.values())
     router = grads["layers/moe/router/w"]
     assert router.dtype == torch.float32 and bool(router.any())
+
+
+@pytest.fixture
+def card_mesh(cuda_device):
+    """The host mesh on the card (a one-process group), torn down after
+    the test."""
+    from repro_torch.launch.mesh import destroy_group, make_host_mesh
+
+    try:
+        yield make_host_mesh()
+    finally:
+        destroy_group()
+
+
+@pytest.mark.cuda
+def test_shard_under_one_card_context_on_card(card_mesh):
+    """On the card's (1, 1) host mesh ``shard`` returns a plain CUDA tensor
+    itself and redistributes a DTensor, and a kernel refuses a DTensor."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import make_rules, shard, sharding_ctx
+    from repro_torch.kernels import _build
+
+    rules = make_rules(smoke_config("llama3.2-1b"), card_mesh)
+    x = torch.randn(2, 8, 64, device="cuda")
+    d = distribute_tensor(x, card_mesh, (Replicate(), Replicate()),
+                          src_data_rank=None)
+    with sharding_ctx(card_mesh, rules):
+        assert shard(x, ("batch", None, "mlp_act")) is x
+        y = shard(d, ("batch", None, "mlp_act"))
+    assert tuple(y.placements) == (Shard(0), Shard(2))
+    assert y.to_local().is_cuda and torch.equal(y.full_tensor(), x)
+    with pytest.raises(TypeError, match="DTensor"):
+        _build.ptr(y)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    t = tree.detach().to(device)
+    return t.requires_grad_(tree.requires_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_cell_materializes_and_steps_on_card(card_mesh, kind):
+    """A smoke-size llama3.2-1b cell (float32) materialized on the card and
+    stepped under its sharding context launches its kernels (K4 and K4b,
+    K4, K5) and matches the same step on CPU copies of its arguments."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import sharding_ctx
+    from repro_torch.launch.steps import build_cell, materialize
+
+    cfg = smoke_config("llama3.2-1b")
+    cell = build_cell(cfg, ShapeConfig("tiny", 64, 2, kind), card_mesh)
+    args = materialize(cell, global_batch=2)
+    cpu_args = tuple(_to(a, "cpu") for a in args)
+    with kernels.recording() as tally, sharding_ctx(card_mesh, cell.rules):
+        got = cell.step(*args)
+        torch.cuda.synchronize()
+    want = cell.step(*cpu_args)
+    n = cfg.n_layers
+    expect = {"train": {"flash_attention": n, "flash_attention_bwd": n},
+              "prefill": {"flash_attention": n},
+              "decode": {"decode_attention": n}}[kind]
+    assert tally == expect
+    if kind == "train":
+        pairs = [(got[2]["loss"], want[2]["loss"])]
+        pairs += [(got[0][k], want[0][k]) for k in want[0]]
+    else:
+        pairs = [(got[0], want[0])] + [(got[1][k], want[1][k])
+                                       for k in want[1]]
+    for g, w in pairs:
+        np.testing.assert_allclose(g.detach().cpu().float().numpy(),
+                                   w.detach().float().numpy(), rtol=1e-4,
+                                   atol=1e-4)

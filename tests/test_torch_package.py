@@ -84,6 +84,12 @@ def test_import_needs_no_triton_and_no_cuda():
         "import repro_torch.modeling.losses, repro_torch.launch.train\n"
         "import repro_torch.training.train_loop\n"
         "import repro_torch.distributed.compression\n"
+        "import repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.elastic, repro_torch.configs.specs\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.steps\n"
+        "import repro_torch.launch.cost_analysis, repro_torch.launch.dryrun\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'repro')]\n"
         "assert not bad, bad\n"
