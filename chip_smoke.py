@@ -273,16 +273,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    repro_torch.launch.dryrun --arch llama3.2-1b --mesh both`` runs in a
    subprocess on the CPU (256- and 512-device fake meshes), which must
    exit 0, its rows printed;
+7c. the documented entry points (``examples``): each of the nine
+   ``examples/<name>_torch.py`` counterparts of the reference's examples,
+   its ``run(device=...)`` called in this process at the reference's sizes
+   (quickstart, placement_sim, fleet_sim: the twin on host numpy;
+   resident_serve: 2,000 bursty tasks in 512-row chunks through
+   ``array_backend="torch"`` (K1, K3, the walk, the replay), which must
+   make the numpy oracle's decisions with floats within 1e-9, then a
+   3-chunk resident stream and its continuation; multi_app_serve and
+   plan_capacity: K2 on 16,384- and 8,192-row chunks, the planner's halving
+   search on the torch core; chaos_serve; serve_placement: the smoke-size
+   llama3.2-1b live; async_serve: its live part on the full-width
+   llama3.2-1b (in place of the reference's 32-wide toy), ``serve`` and
+   ``serve_async`` over 3 edge executors and slices s2 and s8, 60 requests
+   at 2000/s, every one served and none failed, then the twin parity on
+   5,000 bursty tasks), each line with its seconds, its headline numbers,
+   its launches and its graphs' replays (counts zeroed just before each
+   example); K1, K2, K3, K4, K5, the walk and the replay must each launch
+   in the phase;
 8. print the card's name and power limit, one ``{"kernels": [...]}`` JSON
    line (K1-K6, K3b, K4b, K6b, walk and replay), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's ``launches`` are its wrapper's count over its main paths' runs
 (the placement stream, the encoder's two recorded encodes, the live serves,
-the training slices and the launch cells): the calls that launched it (or
-recorded it into a CUDA graph at a capture). The launches that prefill and
-decode graph replays run are counted apart, as ``graph_replayed``, from the
-graphs' own tally (``serving.engine.replayed_launches``).
+the training slices, the launch cells and the examples): the calls that
+launched it (or recorded it into a CUDA graph at a capture). The launches
+that prefill and decode graph replays run are counted apart, as
+``graph_replayed``, from the graphs' own tally
+(``serving.engine.replayed_launches``). ``examples_launches`` and
+``examples_graph_replayed`` are the examples phase's share of each. Both
+counts add up every path's calls at that path's own shapes: K4's and K5's
+take in each live serve's model at its own width and depth and
+serve_placement's 64-wide smoke-size llama3.2-1b (most of K5's graph
+replays), while a row's times and bound are those of the shapes it names.
 """
 
 from __future__ import annotations
@@ -531,15 +555,17 @@ def main() -> int:
     trained = timed("train", phase_train, dev, card)
     rows += trained["rows"]
     launched = timed("launch", phase_launch, dev, card)
+    examples = timed("examples", phase_examples, dev, card)
     # each kernel's launches over its main paths' runs: the placement
-    # stream's, the encoder's encodes, every live serve's and the training
-    # slices' (counts zeroed before each)
+    # stream's, the encoder's encodes, every live serve's, the training
+    # slices', the launch cells' and the examples' (counts zeroed before
+    # each; the live serves and the examples also count graph replays)
     launches = dict(serve["launches"])
     for path in (audio, trained, launched):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     replayed = {}
-    for live in lives:
+    for live in lives + [examples]:
         for name, n in live["launches"].items():
             launches[name] = launches.get(name, 0) + n
         for name, n in live["graph_replayed"].items():
@@ -548,6 +574,9 @@ def main() -> int:
         if row["name"] in sass:
             row["tensor_core_instructions"] = sass[row["name"]]
         row["launches"] = launches[row["name"]]
+        row["examples_launches"] = examples["launches"].get(row["name"], 0)
+        row["examples_graph_replayed"] = \
+            examples["graph_replayed"].get(row["name"], 0)
         row["graph_replayed"] = replayed.get(row["name"], 0)
         if row["name"] == "flash_attention":
             row.update(repeat)
@@ -4099,6 +4128,104 @@ def phase_launch(dev, card) -> dict:
         for k, n in c["launches"].items():
             launches[k] = launches.get(k, 0) + n
     return {"cells": cells, "launches": launches, "dryrun_s": dry_s}
+
+
+# ------------------------------------------------------------ phase 7c
+# the examples' counterparts on the port (examples/<name>_torch.py), run
+# in-process in this order at the reference's sizes, except that
+# async_serve's live part serves the full-width llama3.2-1b (ARCH) in place
+# of the reference's 32-wide toy config; the kernels the phase must launch
+EXAMPLES = ("quickstart", "placement_sim", "fleet_sim", "resident_serve",
+            "multi_app_serve", "chaos_serve", "plan_capacity",
+            "serve_placement", "async_serve")
+EXAMPLE_KERNELS = ("gbrt_predict_multi", "gbrt_predict_blocked",
+                   "linear_scan", "flash_attention", "decode_attention",
+                   "state_walk", "state_replay")
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def served_all(what: str, res, n: int) -> None:
+    """Fails unless a live serve served all ``n`` requests, none failed or
+    shed."""
+    if res.n != n or res.n_failed or res.n_shed:
+        fail(f"{what}: {res.n} of {n} served, {res.n_failed} failed, "
+             f"{res.n_shed} shed")
+
+
+def phase_examples(dev, card) -> dict:
+    """Each example's ``run(device=dev)`` in-process, its launch counts and
+    the graphs' replays zeroed just before and read just after; async_serve
+    at full width. Fails if an example raises, if resident_serve on the
+    card is not the numpy oracle's decisions with floats within FLOAT_TOL,
+    if serve_placement or the full-width serve_async leaves a request
+    unserved, failed or shed, or if a kernel of EXAMPLE_KERNELS is not launched in the phase. Returns
+    the summed launches and replays and each example's numbers."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import (
+        replayed_launches,
+        reset_replayed_launches,
+    )
+
+    launches, replayed, per = {}, {}, {}
+    for name in EXAMPLES:
+        mod = load_example(name)
+        kw = {"cfg": get_config(ARCH)} if name == "async_serve" else {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        reset_replayed_launches()
+        t0 = time.perf_counter()
+        out = mod.run(device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        graphs = replayed_launches()
+        head = dict(out["headline"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[examples] {name} ({card}): {secs:.1f} s, peak allocated "
+            f"{peak:.1f} GiB, {json.dumps(head, default=str)}, launches "
+            f"{json.dumps(counts)}, replayed from graphs "
+            f"{json.dumps(graphs)}")
+        if name == "resident_serve":
+            head["oracle"] = compare("examples resident_serve", out["ref"],
+                                     out["comp"], exact=False)
+            log(f"[examples] resident_serve vs the numpy oracle: "
+                f"{json.dumps(head['oracle'])}")
+        if name == "serve_placement":
+            served_all("serve_placement", out["result"], out["n_requests"])
+        if name == "async_serve":
+            for part in ("sequential", "async"):
+                served_all(f"async_serve at full width, {part}",
+                           out["live"][part], out["live"]["n_requests"])
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in graphs.items():
+            replayed[k] = replayed.get(k, 0) + n
+        per[name] = {"seconds": round(secs, 2), "launches": counts,
+                     "graph_replayed": graphs, "peak_gib": round(peak, 2),
+                     **head}
+    missing = [k for k in EXAMPLE_KERNELS
+               if launches.get(k, 0) + replayed.get(k, 0) <= 0]
+    if missing:
+        fail(f"the examples phase launched no {missing}: launches "
+             f"{launches}, replayed {replayed}")
+    log(f"[examples] launches {json.dumps(launches)}, replayed from graphs "
+        f"{json.dumps(replayed)}")
+    return {"launches": launches, "graph_replayed": replayed,
+            "examples": per}
 
 
 def np_equal(a, b) -> bool:

@@ -40,6 +40,9 @@ from repro_torch.modeling.registry import build_model
 # one capture at a time in the process: a capture must not interleave with
 # another capture's allocations
 _CAPTURE_LOCK = threading.Lock()
+# one lock per CUDA stream (``stream_lock``), taken before ``_CAPTURE_LOCK``
+_STREAM_LOCKS: dict = {}
+_STREAM_LOCKS_LOCK = threading.Lock()
 # kernel launches replayed from prefill and decode graphs, by kernel name
 _REPLAYED: dict[str, int] = {}
 _REPLAYED_LOCK = threading.Lock()
@@ -91,25 +94,58 @@ def make_decode_step(model):
     return decode_step
 
 
+def stream_lock(stream) -> threading.RLock:
+    """The lock of ``stream``'s raw CUDA stream (re-entrant; one for all the
+    ``torch.cuda.Stream`` objects that wrap it).
+
+    ``torch.cuda.Stream()`` hands out streams round-robin from a small pool
+    per device, so two executors, or an executor and a side stream of
+    ``_capture``, can hold the same raw stream. A capture records whatever
+    any thread puts on the capturing stream, or is broken by it. So every
+    thread that runs work on a stream that may capture holds its lock for
+    as long as it does: a capture there waits for that work, and that work
+    waits for the capture. Work on one stream runs one after another on
+    the card anyway."""
+    with _STREAM_LOCKS_LOCK:
+        return _STREAM_LOCKS.setdefault(stream, threading.RLock())
+
+
 def _capture(fn, device, reset=None):
-    """Capture ``fn()`` in a CUDA graph on ``device``: one warm-up call on a
-    side stream first (as graph capture wants), then ``reset()`` when given,
-    then the capture. Returns (graph, what the captured call returned, the
+    """Capture ``fn()`` in a CUDA graph on ``device``: one warm-up call
+    first (as graph capture wants), then ``reset()`` when given, then the
+    capture. Returns (graph, what the captured call returned, the
     kernel launches the capture recorded for the calling thread alone, by
-    kernel name)."""
+    kernel name).
+
+    Warm-up and capture run on the caller's current stream, where an
+    executor replays the graph, unless that is the device's default
+    stream, which cannot capture (then on a side stream). A captured cuBLAS
+    call keeps the workspace PyTorch holds for its (handle, stream), so
+    graphs captured on one stream share a workspace: captured on torch's
+    one default capture stream, the graphs of executors that replay them at
+    once on their own streams (``serve_async``'s worker threads) raced on
+    it, and at llama3.2-1b's full width such replays never finished.
+    Captured where they replay, graphs that share a workspace share a
+    stream and run one after another. The stream's ``stream_lock`` is held
+    from the warm-up to the end of the capture."""
     from repro_torch import kernels
 
-    with _CAPTURE_LOCK:
-        side = torch.cuda.Stream(device=device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):  # warm-up, as graph capture wants
+    current = torch.cuda.current_stream(device)
+    on = current
+    if current == torch.cuda.default_stream(device):
+        on = torch.cuda.Stream(device=device)
+    with stream_lock(on), _CAPTURE_LOCK:
+        if on is not current:
+            on.wait_stream(current)
+        with torch.cuda.stream(on):  # warm-up, as graph capture wants
             fn()
-        torch.cuda.current_stream(device).wait_stream(side)
+        current.wait_stream(on)
         if reset is not None:
             reset()
         graph = torch.cuda.CUDAGraph()
         with kernels.recording() as captured, \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                torch.cuda.graph(graph, stream=on,
+                                 capture_error_mode="thread_local"):
             out = fn()
     return graph, out, captured
 

@@ -36,7 +36,9 @@ pulls its dispatches in arrival order, executions overlap across targets,
 and completions land on one shared queue out of arrival order, hence the
 ``lease``/``land`` container bookkeeping and the completion-time-ordered
 idle sweep. Cold starts are guarded per executor (``LiveExecutor`` owns a
-lock); each executor on the card runs on its own CUDA stream, and a pool
+lock); each executor on the card runs on a CUDA stream drawn from torch's
+pool, which may hand two executors one stream (its ``stream_lock`` then
+keeps one's graph capture apart from the other's work), and a pool
 spreads executors round-robin over the visible CUDA devices when there is
 more than one.
 
@@ -66,6 +68,7 @@ from repro_torch.serving.engine import (
     PrefillGraph,
     make_compiled_steps,
     serving_bytes,
+    stream_lock,
 )
 
 PROMPT = (1, 32)  # (batch, prompt length) of every execution's prefill
@@ -159,9 +162,15 @@ class LiveExecutor:
         """Provider reclaimed the idle slice: drop the graphs and weights."""
         self._compiled = None
 
+    @contextlib.contextmanager
     def _on_device(self):
-        return torch.cuda.stream(self.stream) if self.stream is not None \
-            else contextlib.nullcontext()
+        """Run on this executor's stream, holding its ``stream_lock``:
+        another executor may hold the same pool stream and capture on it."""
+        if self.stream is None:
+            yield
+            return
+        with stream_lock(self.stream), torch.cuda.stream(self.stream):
+            yield
 
     def _sync(self) -> None:
         if self.stream is not None:

@@ -1,7 +1,8 @@
 """Package rules of the port (``repro_torch``).
 
-- nothing under ``src/repro_torch/`` and nothing in ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``repro`` (an AST scan of every import);
+- nothing under ``src/repro_torch/``, nothing in ``chip_smoke.py`` and no
+  ``examples/*_torch.py`` imports ``jax`` or the JAX package ``repro`` (an
+  AST scan of every import);
 - ``import repro_torch`` (and every module of the slice) works without
   triton and without CUDA, and imports neither triton nor jax;
 - entry points (placement, model steps, executors, pools, calibration, the
@@ -51,7 +52,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(),
