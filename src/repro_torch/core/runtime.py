@@ -80,7 +80,7 @@ from repro_torch.core.apps import (
     T_IDL_ACTUAL_MEAN_MS,
     T_IDL_ACTUAL_STD_MS,
 )
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.core.decision import (
     ARRAY_BACKENDS,
     DecisionBatch,
@@ -1252,31 +1252,45 @@ class PlacementRuntime:
         (live). On ``TwinBackend`` the result is METRIC-IDENTICAL to
         ``serve(batched=True)`` — asserted in tests; backends without an
         ``execute_async`` runner serve the same plan synchronously.
+
+        Spans (``repro_torch.spans``, when recording): ``serve.slice`` over
+        ``serve.place`` (the decision pass), ``serve.execute`` (the runner;
+        a live pool's workers hang their ``pool.dispatch`` under it) and
+        ``serve.records``.
         """
-        self._pre_place(tasks)
-        self._snapshot_horizons()
-        decisions = self.engine.place_many(tasks, edge_queues=self.edge_queues)
-        run = getattr(self.backend, "execute_async", None)
-        reclaiming = (self.overload is not None
-                      and self.overload.reclamation is not None)
-        if run is None or ((self._failure_aware or reclaiming)
-                           and isinstance(decisions, DecisionBatch)):
-            # the failure-aware runner issues the identical dispatch rounds
-            # from every serve path (the twin's async runner routes faulted
-            # runs through execute_many anyway — see ``execute_async``)
-            records = self._execute_decisions(tasks, decisions)
-        elif isinstance(decisions, DecisionBatch):
-            eb = run(tasks, decisions
-                     if getattr(self.backend, "accepts_decision_batch", False)
-                     else decisions.target_list())
-            records = self._record_batch(tasks, decisions, eb) \
-                if isinstance(eb, ExecutionBatch) \
-                else [self._record(t, d, d.target, d.prediction, o)
-                      for t, d, o in zip(tasks, decisions, eb)]
-        else:
-            records = self._race_decisions(tasks, decisions, run)
-        self._post_execute(records)
-        return self.result(records)
+        with spans.span("serve.slice", tasks=len(tasks)):
+            with spans.span("serve.place"):
+                self._pre_place(tasks)
+                self._snapshot_horizons()
+                decisions = self.engine.place_many(
+                    tasks, edge_queues=self.edge_queues)
+            run = getattr(self.backend, "execute_async", None)
+            reclaiming = (self.overload is not None
+                          and self.overload.reclamation is not None)
+            eb = None
+            with spans.span("serve.execute"):
+                if run is None or ((self._failure_aware or reclaiming)
+                                   and isinstance(decisions, DecisionBatch)):
+                    # the failure-aware runner issues the identical dispatch
+                    # rounds from every serve path (the twin's async runner
+                    # routes faulted runs through execute_many anyway — see
+                    # ``execute_async``)
+                    records = self._execute_decisions(tasks, decisions)
+                elif isinstance(decisions, DecisionBatch):
+                    eb = run(tasks, decisions
+                             if getattr(self.backend, "accepts_decision_batch",
+                                        False)
+                             else decisions.target_list())
+                else:
+                    records = self._race_decisions(tasks, decisions, run)
+            with spans.span("serve.records"):
+                if eb is not None:
+                    records = self._record_batch(tasks, decisions, eb) \
+                        if isinstance(eb, ExecutionBatch) \
+                        else [self._record(t, d, d.target, d.prediction, o)
+                              for t, d, o in zip(tasks, decisions, eb)]
+                self._post_execute(records)
+                return self.result(records)
 
     def _race_decisions(self, tasks: list[TaskInput], decisions,
                         run) -> list[TaskRecord]:

@@ -40,6 +40,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch import spans
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gbrt_predict", "linear_scan", "state_replay", "flash_attention",
@@ -105,32 +107,35 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     """Compile every listed source that has no current library, one ``nvcc``
     process per source, all started together. Returns per source the build
     seconds (0 when it was already built) and the compiler's output (ptxas
-    register and shared-memory report). Raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    report: dict[str, dict] = {}
-    t0 = time.perf_counter()
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            report[name] = {"seconds": 0.0, "log": "", "path": str(out)}
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log,
-                        "path": str(out)}
-    if failed:
-        raise KernelLaunchError("nvcc failed for " + "\n".join(failed))
-    return report
+    register and shared-memory report). Raises if any build fails. The
+    call is the span ``kernels.build`` (``repro_torch.spans``, when
+    recording)."""
+    with spans.span("kernels.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        report: dict[str, dict] = {}
+        t0 = time.perf_counter()
+        for name in names:
+            out = lib_path(name)
+            if out.exists():
+                report[name] = {"seconds": 0.0, "log": "", "path": str(out)}
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (subprocess.Popen(
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+            report[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                            "path": str(out)}
+        if failed:
+            raise KernelLaunchError("nvcc failed for " + "\n".join(failed))
+        return report
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -29,12 +29,13 @@ draws from a seeded ``torch.Generator`` (its draws differ from
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.modeling.registry import build_model
 
 # one capture at a time in the process: a capture must not interleave with
@@ -127,14 +128,18 @@ def _capture(fn, device, reset=None):
     it, and at llama3.2-1b's full width such replays never finished.
     Captured where they replay, graphs that share a workspace share a
     stream and run one after another. The stream's ``stream_lock`` is held
-    from the warm-up to the end of the capture."""
+    from the warm-up to the end of the capture; the wait for it and for
+    ``_CAPTURE_LOCK`` is the span ``cold.capture_lock``."""
     from repro_torch import kernels
 
     current = torch.cuda.current_stream(device)
     on = current
     if current == torch.cuda.default_stream(device):
         on = torch.cuda.Stream(device=device)
-    with stream_lock(on), _CAPTURE_LOCK:
+    with contextlib.ExitStack() as held:
+        with spans.span("cold.capture_lock"):
+            held.enter_context(stream_lock(on))
+            held.enter_context(_CAPTURE_LOCK)
         if on is not current:
             on.wait_stream(current)
         with torch.cuda.stream(on):  # warm-up, as graph capture wants

@@ -62,7 +62,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.serving.engine import (
     DecodeGraph,
     PrefillGraph,
@@ -188,62 +188,79 @@ class LiveExecutor:
     def _compile_locked(self) -> tuple[float, bool]:
         if self._compiled is not None:
             return 0.05, False  # a racing caller started it while we waited
-        t0 = _wall_ms()
-        with self._on_device():
-            model, params, prefill_fn, decode_fn = make_compiled_steps(
-                self.model_cfg, seed=self.seed, device=self.device)
-            toks = torch.zeros(PROMPT, dtype=torch.int32, device=self.device)
-            tok = torch.zeros(PROMPT[0], dtype=torch.int32, device=self.device)
-            logits, cache = prefill_fn(params, {"tokens": toks})
-            logits, cache = decode_fn(params, cache, {"token": tok})
-            graphs = (PrefillGraph(prefill_fn, params, toks),
-                      DecodeGraph(decode_fn, params, cache)) \
-                if self.stream is not None else None
-            self._sync()
-        self._compiled = (prefill_fn, decode_fn, params, model, graphs, toks,
-                          tok)
-        return _wall_ms() - t0, True
+        with spans.span("cold", seed=self.seed):
+            t0 = _wall_ms()
+            with self._on_device():
+                with spans.span("cold.weights"):
+                    model, params, prefill_fn, decode_fn = make_compiled_steps(
+                        self.model_cfg, seed=self.seed, device=self.device)
+                with spans.span("cold.warmup"):
+                    toks = torch.zeros(PROMPT, dtype=torch.int32,
+                                       device=self.device)
+                    tok = torch.zeros(PROMPT[0], dtype=torch.int32,
+                                      device=self.device)
+                    logits, cache = prefill_fn(params, {"tokens": toks})
+                    logits, cache = decode_fn(params, cache, {"token": tok})
+                graphs = None
+                if self.stream is not None:
+                    with spans.span("cold.capture"):
+                        graphs = (PrefillGraph(prefill_fn, params, toks),
+                                  DecodeGraph(decode_fn, params, cache))
+                self._sync()
+            self._compiled = (prefill_fn, decode_fn, params, model, graphs,
+                              toks, tok)
+            return _wall_ms() - t0, True
 
     def execute(self, n_tokens: int, payload_bytes: float) -> ExecutionRecord:
         """Run a task of ``n_tokens`` through real steps: one prefill, then
         the decode steps (graph replays on the card)."""
-        with self._lock:
+        steps = max(int(np.ceil(
+            n_tokens / (self.spec.chips * self.spec.tokens_per_step))), 1)
+        with spans.span("exec", seed=self.seed, steps=steps) as sp, \
+                contextlib.ExitStack() as held:
+            with spans.span("exec.lock"):
+                held.enter_context(self._lock)
             start_ms, cold = self._compile_locked()
+            sp.set(cold=cold)
             prefill_fn, decode_fn, params, model, graphs, toks, tok = \
                 self._compiled
 
-            t0 = _wall_ms()
-            feed = np.zeros(max(int(payload_bytes) // 4, 1), np.float32)
-            with self._on_device():
-                _ = torch.from_numpy(feed).to(self.device, copy=True)
-                self._sync()
-            feed_ms = _wall_ms() - t0
-            if self.network is not None and not self.spec.is_edge:
-                feed_ms += self.network.transfer(payload_bytes)  # WAN upload
+            with spans.span("exec.feed"):
+                t0 = _wall_ms()
+                feed = np.zeros(max(int(payload_bytes) // 4, 1), np.float32)
+                with self._on_device():
+                    _ = torch.from_numpy(feed).to(self.device, copy=True)
+                    self._sync()
+                feed_ms = _wall_ms() - t0
+                if self.network is not None and not self.spec.is_edge:
+                    # the WAN upload
+                    feed_ms += self.network.transfer(payload_bytes)
 
-            steps = max(int(np.ceil(
-                n_tokens / (self.spec.chips * self.spec.tokens_per_step))), 1)
             t0 = _wall_ms()
             with self._on_device():
-                if graphs is not None:
-                    prefill, decode = graphs
-                    logits, cache = prefill.run()
-                    decode.load(cache)
-                    for _ in range(steps):
-                        logits = decode.step()
-                else:
-                    logits, cache = prefill_fn(params, {"tokens": toks})
-                    for _ in range(steps):
-                        logits, cache = decode_fn(params, cache,
-                                                  {"token": tok})
-                self._sync()
+                with spans.span("exec.launch"):
+                    if graphs is not None:
+                        prefill, decode = graphs
+                        logits, cache = prefill.run()
+                        decode.load(cache)
+                        for _ in range(steps):
+                            logits = decode.step()
+                    else:
+                        logits, cache = prefill_fn(params, {"tokens": toks})
+                        for _ in range(steps):
+                            logits, cache = decode_fn(params, cache,
+                                                      {"token": tok})
+                with spans.span("exec.sync"):
+                    self._sync()
             comp_ms = _wall_ms() - t0
 
-            t0 = _wall_ms()
-            _ = logits.cpu().numpy()
-            store_ms = _wall_ms() - t0
-            if self.network is not None and self.spec.is_edge:
-                store_ms += self.network.transfer(payload_bytes)  # IoT upload
+            with spans.span("exec.store"):
+                t0 = _wall_ms()
+                _ = logits.cpu().numpy()
+                store_ms = _wall_ms() - t0
+                if self.network is not None and self.spec.is_edge:
+                    # the IoT upload
+                    store_ms += self.network.transfer(payload_bytes)
 
             return ExecutionRecord(feed_ms=feed_ms, start_ms=start_ms,
                                    comp_ms=comp_ms, store_ms=store_ms,
@@ -259,6 +276,7 @@ class _Dispatch:
     n_tokens: int
     payload_bytes: float
     arrival_ms: float
+    task: int = -1     # the ``TaskInput.idx`` it serves (its spans carry it)
 
 
 @dataclass
@@ -384,7 +402,8 @@ class ExecutorPool:
         the dispatch queues instead (``_queue_on_locked``, ``_reclaim_
         locked``); the lease's virtual wait is left in the container's
         ``queued_ms``. The lease marks it in flight until ``land``."""
-        with self._lock:
+        with spans.span("pool.lease") as sp, self._lock:
+            reclaimed = self.reclaimed
             self._reap(name, now)
             pool = self.containers.setdefault(name, [])
             idle = [c for c in pool
@@ -406,6 +425,7 @@ class ExecutorPool:
                 self.cap_wait_ms += wait
             c.queued_ms = wait
             c.in_flight = True
+            sp.set(cap_wait_ms=wait, reclaimed=self.reclaimed - reclaimed)
             return c
 
     def _reclaim_locked(self, now: float) -> float:
@@ -442,7 +462,7 @@ class ExecutorPool:
         virtual lifecycle and release the lease. Returns the completion time
         on the virtual clock."""
         completion = now + rec.queue_ms + rec.start_ms + rec.comp_ms
-        with self._lock:
+        with spans.span("pool.land"), self._lock:
             c.busy_until = completion
             c.last_completion = completion
             c.in_flight = False
@@ -533,6 +553,7 @@ class ExecutorPool:
         state_lock = threading.Lock()
         started: set[int] = set()
         cancelled: set[int] = set()
+        parent = spans.current()  # the caller's span, over the workers' own
 
         def try_start(i: int) -> bool:
             with state_lock:
@@ -553,12 +574,14 @@ class ExecutorPool:
                 if not try_start(d.idx):
                     done.put((d.idx, None))  # cancelled: ran nowhere, bills nothing
                     return
-                if d.target in self.edges:
-                    rec = self.execute_edge(d.n_tokens, d.payload_bytes,
-                                            d.arrival_ms, device=d.target)
-                else:
-                    rec = self.execute_cloud(d.target, d.n_tokens,
-                                             d.payload_bytes, d.arrival_ms)
+                with spans.span("pool.dispatch", parent=parent, task=d.task,
+                                target=d.target):
+                    if d.target in self.edges:
+                        rec = self.execute_edge(d.n_tokens, d.payload_bytes,
+                                                d.arrival_ms, device=d.target)
+                    else:
+                        rec = self.execute_cloud(d.target, d.n_tokens,
+                                                 d.payload_bytes, d.arrival_ms)
                 finished(d.idx)
                 done.put((d.idx, rec))
             except BaseException as e:  # surface worker failures to the caller
@@ -640,32 +663,34 @@ def make_pool(model_cfg, specs: list[SliceSpec], t_idl_ms: float = 120_000.0,
     round-robin so concurrent executions overlap; ``network`` switches on the
     emulated WAN legs. On CUDA devices the pool holds at most the models
     they fit (``resident_capacity``), the edge fleet included."""
-    if edge_specs is None:
-        edge_specs = [edge_spec or SliceSpec(name="edge", chips=1, is_edge=True)]
-    if devices is None:
-        dev = resolve_device(device)
-        if device is None and torch.cuda.device_count() > 1:
-            devices = tuple(torch.device("cuda", i)
-                            for i in range(torch.cuda.device_count()))
-        else:
-            devices = (dev,)
-    pool = ExecutorPool(
-        model_cfg=model_cfg,
-        specs={s.name: s for s in specs if not s.is_edge},
-        t_idl_ms=t_idl_ms,
-        network=network,
-        devices=tuple(resolve_device(d) for d in devices),
-    )
-    pool.max_resident = resident_capacity(model_cfg, pool.devices)
-    pool.edges = {s.name: LiveExecutor(s, model_cfg,
-                                       device=pool._next_device(),
-                                       network=network)
-                  for s in edge_specs}
-    pool.edge_free_at = {s.name: 0.0 for s in edge_specs}
-    # each edge device's long-lived function is always resident (Sec. II-A.2):
-    # every device pays its own one-time cold start at provisioning, never
-    # during serving
-    for ex in pool.edges.values():
-        ex._ensure_compiled()
-    pool.note_resident()
-    return pool
+    with spans.span("pool.make"):
+        if edge_specs is None:
+            edge_specs = [edge_spec
+                          or SliceSpec(name="edge", chips=1, is_edge=True)]
+        if devices is None:
+            dev = resolve_device(device)
+            if device is None and torch.cuda.device_count() > 1:
+                devices = tuple(torch.device("cuda", i)
+                                for i in range(torch.cuda.device_count()))
+            else:
+                devices = (dev,)
+        pool = ExecutorPool(
+            model_cfg=model_cfg,
+            specs={s.name: s for s in specs if not s.is_edge},
+            t_idl_ms=t_idl_ms,
+            network=network,
+            devices=tuple(resolve_device(d) for d in devices),
+        )
+        pool.max_resident = resident_capacity(model_cfg, pool.devices)
+        pool.edges = {s.name: LiveExecutor(s, model_cfg,
+                                           device=pool._next_device(),
+                                           network=network)
+                      for s in edge_specs}
+        pool.edge_free_at = {s.name: 0.0 for s in edge_specs}
+        # each edge device's long-lived function is always resident (Sec.
+        # II-A.2): every device pays its own one-time cold start at
+        # provisioning, never during serving
+        for ex in pool.edges.values():
+            ex._ensure_compiled()
+        pool.note_resident()
+        return pool

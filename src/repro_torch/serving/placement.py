@@ -38,6 +38,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.cil import ContainerInfoList
 from repro_torch.core.decision import DecisionEngine, Policy
 from repro_torch.core.gbrt import GBRT, GBRTConfig
@@ -200,86 +201,99 @@ def calibrate_catalog(model_cfg, specs: list[SliceSpec], *,
                       pricing: SlicePricing | None = None,
                       mean_tokens: float = 96.0, device=None) -> SliceCatalog:
     """Paper Sec. IV-C against real executions on ``device``: measure, fit,
-    evaluate."""
-    rng = np.random.default_rng(seed)
-    cloud_specs = [s for s in specs if not s.is_edge]
-    pricing = pricing or SlicePricing()
+    evaluate. Spans (when recording): ``calibrate`` over ``calibrate.cold``
+    (the cold starts), ``calibrate.warm`` (the warm measurements) and
+    ``calibrate.fit``."""
+    with spans.span("calibrate"):
+        rng = np.random.default_rng(seed)
+        cloud_specs = [s for s in specs if not s.is_edge]
+        pricing = pricing or SlicePricing()
 
-    # --- cold starts: real set-up cycles per config ------------------------
-    # warmup: the process's first cold start pays one-time backend init
-    # (CUDA context, cuBLAS handles, kernel libraries) — not a property of a
-    # slice cold start; burn it before measuring.
-    warmup = LiveExecutor(cloud_specs[0], model_cfg, seed=99, device=device)
-    warmup._ensure_compiled()
-    warmup.evict()
-    colds = []
-    for s in cloud_specs:
-        for i in range(n_cold):
-            ex = LiveExecutor(s, model_cfg, seed=100 + i, device=device)
-            start_ms, cold = ex._ensure_compiled()
-            assert cold
-            colds.append(start_ms)
-            ex.evict()
-    start_cold = NormalModel.fit(np.array(colds))
+        with spans.span("calibrate.cold"):
+            # --- cold starts: real set-up cycles per config ----------------
+            # warmup: the process's first cold start pays one-time backend
+            # init (CUDA context, cuBLAS handles, kernel libraries) — not a
+            # property of a slice cold start; burn it before measuring.
+            warmup = LiveExecutor(cloud_specs[0], model_cfg, seed=99,
+                                  device=device)
+            warmup._ensure_compiled()
+            warmup.evict()
+            colds = []
+            for s in cloud_specs:
+                for i in range(n_cold):
+                    ex = LiveExecutor(s, model_cfg, seed=100 + i,
+                                      device=device)
+                    start_ms, cold = ex._ensure_compiled()
+                    assert cold
+                    colds.append(start_ms)
+                    ex.evict()
+            start_cold = NormalModel.fit(np.array(colds))
 
-    # --- warm component measurements across (task, config) ------------------
-    # calibration tasks must cover the serving size distribution (paper
-    # Sec. IV-C trains on representative inputs)
-    tok_samples = np.clip(rng.lognormal(np.log(mean_tokens), 0.6, n_tasks),
-                          8, 16384)
-    feats, comps, feeds, stores, warms = [], [], [], [], []
-    edge_comps, edge_sizes, edge_stores = [], [], []
-    warm_ex = {s.name: LiveExecutor(s, model_cfg, seed=7, device=device)
-               for s in cloud_specs}
-    for ex in warm_ex.values():
-        ex._ensure_compiled()
-    edge_ex = LiveExecutor(EDGE_SPEC, model_cfg, device=device)
-    edge_ex._ensure_compiled()
+        with spans.span("calibrate.warm"):
+            # --- warm component measurements across (task, config) --------
+            # calibration tasks must cover the serving size distribution
+            # (paper Sec. IV-C trains on representative inputs)
+            tok_samples = np.clip(
+                rng.lognormal(np.log(mean_tokens), 0.6, n_tasks), 8, 16384)
+            feats, comps, feeds, stores, warms = [], [], [], [], []
+            edge_comps, edge_sizes, edge_stores = [], [], []
+            warm_ex = {s.name: LiveExecutor(s, model_cfg, seed=7,
+                                            device=device)
+                       for s in cloud_specs}
+            for ex in warm_ex.values():
+                ex._ensure_compiled()
+            edge_ex = LiveExecutor(EDGE_SPEC, model_cfg, device=device)
+            edge_ex._ensure_compiled()
 
-    for t in tok_samples:
-        nb = float(t) * 4.0
-        for s in cloud_specs:
-            rec = warm_ex[s.name].execute(int(t), nb)
-            feats.append([float(t), float(s.chips)])
-            comps.append(rec.comp_ms)
-            feeds.append((nb, rec.feed_ms))
-            stores.append(rec.store_ms)
-            warms.append(rec.start_ms)
-        erec = edge_ex.execute(int(t), nb)
-        edge_sizes.append(float(t))
-        edge_comps.append(erec.comp_ms)
-        edge_stores.append(erec.store_ms)
-    # the measuring executors hold a model each: release them, so that the
-    # serving pool builds its own on a card that holds only a few at once
-    for ex in (*warm_ex.values(), edge_ex):
-        ex.evict()
+            for t in tok_samples:
+                nb = float(t) * 4.0
+                for s in cloud_specs:
+                    rec = warm_ex[s.name].execute(int(t), nb)
+                    feats.append([float(t), float(s.chips)])
+                    comps.append(rec.comp_ms)
+                    feeds.append((nb, rec.feed_ms))
+                    stores.append(rec.store_ms)
+                    warms.append(rec.start_ms)
+                erec = edge_ex.execute(int(t), nb)
+                edge_sizes.append(float(t))
+                edge_comps.append(erec.comp_ms)
+                edge_stores.append(erec.store_ms)
+            # the measuring executors hold a model each: release them, so
+            # that the serving pool builds its own on a card that holds only
+            # a few at once
+            for ex in (*warm_ex.values(), edge_ex):
+                ex.evict()
 
-    feats = np.array(feats)
-    comps = np.array(comps)
-    comp_cloud = GBRT.fit(feats, comps,
-                          GBRTConfig(n_trees=60, max_depth=3, learning_rate=0.1))
-    pred = comp_cloud.predict(feats)
-    cloud_std = float(np.std((comps - pred) / np.maximum(pred, 1e-9)))
+        with spans.span("calibrate.fit"):
+            feats = np.array(feats)
+            comps = np.array(comps)
+            comp_cloud = GBRT.fit(feats, comps,
+                                  GBRTConfig(n_trees=60, max_depth=3,
+                                             learning_rate=0.1))
+            pred = comp_cloud.predict(feats)
+            cloud_std = float(np.std((comps - pred) / np.maximum(pred, 1e-9)))
 
-    feed = RidgeModel.fit(np.array([f[0] for f in feeds]),
-                          np.array([f[1] for f in feeds]))
-    comp_edge = RidgeModel.fit(np.array(edge_sizes), np.array(edge_comps))
-    epred = comp_edge.predict(np.array(edge_sizes))
-    edge_std = float(np.std((np.array(edge_comps) - epred) / np.maximum(epred, 1e-9)))
+            feed = RidgeModel.fit(np.array([f[0] for f in feeds]),
+                                  np.array([f[1] for f in feeds]))
+            comp_edge = RidgeModel.fit(np.array(edge_sizes),
+                                       np.array(edge_comps))
+            epred = comp_edge.predict(np.array(edge_sizes))
+            edge_std = float(np.std((np.array(edge_comps) - epred)
+                                    / np.maximum(epred, 1e-9)))
 
-    return SliceCatalog(
-        model_cfg=model_cfg, specs=list(specs),
-        feed=feed,
-        start_warm=NormalModel.fit(np.array(warms)),
-        start_cold=start_cold,
-        comp_cloud=comp_cloud,
-        store=NormalModel.fit(np.array(stores)),
-        comp_edge=comp_edge,
-        store_edge=NormalModel.fit(np.array(edge_stores)),
-        cloud_comp_std_frac=cloud_std,
-        edge_comp_std_frac=edge_std,
-        pricing=pricing,
-    )
+            return SliceCatalog(
+                model_cfg=model_cfg, specs=list(specs),
+                feed=feed,
+                start_warm=NormalModel.fit(np.array(warms)),
+                start_cold=start_cold,
+                comp_cloud=comp_cloud,
+                store=NormalModel.fit(np.array(stores)),
+                comp_edge=comp_edge,
+                store_edge=NormalModel.fit(np.array(edge_stores)),
+                cloud_comp_std_frac=cloud_std,
+                edge_comp_std_frac=edge_std,
+                pricing=pricing,
+            )
 
 
 def _edge_fleet_names(n_edge_devices: int) -> list[str]:
@@ -393,7 +407,8 @@ class LiveBackend:
         """
         n = len(tasks)
         plan = [_Dispatch(idx=i, target=tg, n_tokens=int(t.size),
-                          payload_bytes=t.bytes, arrival_ms=t.arrival_ms)
+                          payload_bytes=t.bytes, arrival_ms=t.arrival_ms,
+                          task=t.idx)
                 for i, (t, tg) in enumerate(zip(tasks, targets))]
         recs = self.pool.serve_concurrent(plan, races=races)
         out = ExecutionBatch(
